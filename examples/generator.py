@@ -29,9 +29,12 @@ def main():
 
     import numpy as np
 
+    from fetalsyngen_tpu.compile_cache import enable_compile_cache
     from fetalsyngen_tpu.config import instantiate, load_yaml, resolve_interpolations
     from fetalsyngen_tpu.io import nifti
     from fetalsyngen_tpu.testing import build_bids_tree
+
+    enable_compile_cache()
 
     root = Path(args.out) / "bids"
     root.mkdir(parents=True, exist_ok=True)

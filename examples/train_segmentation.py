@@ -2,7 +2,7 @@
 
 BASELINE config #5 in miniature: the generator is fused into the jitted
 training step, sharded data-parallel over all available devices — no host
-dataloader in the loop, so the chips never starve.
+dataloader in the loop, so the devices never starve.
 
 Run (any backend; uses a procedural phantom so no data files are needed):
     python examples/train_segmentation.py --steps 10 --shape 64
@@ -33,11 +33,13 @@ def main():
     import numpy as np
     from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
+    from fetalsyngen_tpu.compile_cache import enable_compile_cache
     from fetalsyngen_tpu.generator.config import GeneratorCfg, IntensityCfg
     from fetalsyngen_tpu.testing import phantom_seeds_and_seg
     from fetalsyngen_tpu.train.step import create_train_state, make_sharded_train_step
     from fetalsyngen_tpu.train.unet import UNet3D
 
+    enable_compile_cache()
     shape = (args.shape,) * 3
     labels = tuple([0] + list(range(10, 50)))
     gen_classes = tuple([0] + [10] * 10 + [20] * 10 + [30] * 10 + list(range(40, 50)))

@@ -1,15 +1,22 @@
-"""fetalsyngen-tpu: TPU-native synthetic fetal-brain-MRI data generator.
+"""fetalsyngen-tpu: synthetic fetal-brain-MRI data generator in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 Medical-Image-Analysis-Laboratory/fetalsyngen. See README.md and PARITY.md.
 """
 
-from .config import instantiate, load_and_instantiate, load_yaml, resolve_interpolations
+from .config import (
+    instantiate,
+    load_and_instantiate,
+    load_yaml,
+    parse_yaml,
+    resolve_interpolations,
+)
 
 __all__ = [
     "instantiate",
     "load_and_instantiate",
     "load_yaml",
+    "parse_yaml",
     "resolve_interpolations",
 ]
 

@@ -12,7 +12,7 @@ Reference-parity layer over ``fetalsyngen/data/datasets.py``:
 Samples are plain numpy/dict structures (framework-agnostic): ``image`` is a
 (1, D, H, W) float32 in [0, 1], ``label`` a (1, D, H, W) int array, ``name`` a
 string — drop-in for any trainer, including a torch ``DataLoader`` with the
-default collate. For TPU training prefer
+default collate. For training on an accelerator prefer
 :mod:`fetalsyngen_tpu.parallel.input_pipeline`, which batches generation on
 device instead of forking host workers.
 """

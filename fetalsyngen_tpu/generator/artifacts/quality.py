@@ -6,7 +6,7 @@ reference's np.random usage), voxel fields run jitted on device. Each class is
 callable as ``artifact(output, seg, genparams=..., resolution=..., key=...,
 rng=...)`` and returns ``(output, metadata)`` like the reference.
 
-Design notes (TPU): center picking from masks (``torch.multinomial`` /
+Design notes: center picking from masks (``torch.multinomial`` /
 ``randperm`` over ``torch.where`` results, reference ``artifacts.py:110-113,
 514-517, 565-567``) is replaced by weighted reservoir-style top-k over masked
 random keys — fixed-shape, fully on device.
@@ -59,10 +59,9 @@ class ReconMergeParams:
 def topk_flat(scores, k: int, block_k: int = 8):
     """Top-k over a flat volume-scale score vector via a per-block prefilter.
 
-    ``lax.top_k`` over 16.7M elements measures ~160 ms on v5e; a two-stage
-    form — top-``block_k`` within each of 4096 contiguous blocks, then an
-    exact top-k over the 32k survivors — measures ~7 ms with IDENTICAL
-    output unless more than ``block_k`` of the k winners share one block.
+    A two-stage form — top-``block_k`` within each of 4096 contiguous
+    blocks, then an exact top-k over the 32k survivors — gives IDENTICAL
+    output to ``lax.top_k`` unless more than ``block_k`` of the k winners share one block.
     For the random/Gumbel scores used here the winners are uniform over the
     foreground's blocks (any mask spanning >~100 of the 4096 blocks puts the
     collision probability below 1e-5; ``tests/test_artifacts.py``
@@ -156,8 +155,7 @@ class BlurCortex:
         centers = jnp.stack([i, rem // shape[2], rem % shape[2]], -1).astype(jnp.float32)
 
         gaussian = mog_3d(shape, centers, sigmas, valid)
-        # MXU Toeplitz matmuls (the conv_general_dilated path measured
-        # ~1.4 s at 256^3 on v5e). half_len = 25 covers 3 sigma of the
+        # Toeplitz matmuls. half_len = 25 covers 3 sigma of the
         # unclipped gamma(2, 1) draw out to sigma ~ 8.3 (P ~ 2e-3); the band
         # width does not change the matmul cost.
         blurred = gaussian_blur_mm(output, std_blurs, 25)

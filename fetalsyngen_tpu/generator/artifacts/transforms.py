@@ -4,7 +4,7 @@ Reference parity for the SVoRT transform stack
 (``fetalsyngen/generator/artifacts/svort/transform/transform.py:14-489`` and
 ``transform_convert.py:24-161``). These are tiny per-slice 3x4 matrices used
 to orchestrate the scanner simulation; they live on the host (NumPy + scipy
-Rotation) while the voxel-scale work they parameterize runs on TPU. The
+Rotation) while the voxel-scale work they parameterize runs on the device. The
 reference's CUDA extension ``transform_convert_cuda`` (axis-angle <-> matrix
 with analytic gradients) is unnecessary here: conversions are vectorized
 NumPy/scipy and nothing differentiates through them in the generator.

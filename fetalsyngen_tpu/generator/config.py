@@ -54,12 +54,12 @@ class DeformCfg:
     # floor(min(coord)) (``affine_nonrigid.py:350-358``).
     margin_shift: bool = True
     # Warp implementation:
-    #  'separable' — TPU-native triangular hat passes (~25x faster on TPU).
-    #     Sampling positions are exact; the effective interpolation kernel is
+    #  'separable' — triangular axis passes (ops/warp.py). Sampling
+    #     positions are exact; the effective interpolation kernel is
     #     slightly wider than one trilinear tap, so warped high-frequency
     #     content (e.g. raw GMM noise) comes out marginally smoother.
-    #  'exact' — reference-exact trilinear via XLA gathers (slow on TPU;
-    #     bit-matches `fast_3D_interp_torch` semantics; used in parity tests).
+    #  'exact' — reference-exact trilinear via XLA gathers (bit-matches
+    #     `fast_3D_interp_torch` semantics; used in parity tests).
     warp_impl: str = "separable"
 
     def small_field_max(self) -> tuple[int, int, int]:

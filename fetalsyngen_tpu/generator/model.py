@@ -8,7 +8,7 @@ same nested genparams dicts for replay. The component classes
 ``RandNoise``, ``RandGamma``) keep the reference's constructor signatures but
 act as config carriers: all voxel math happens in the single jitted pipeline
 (:mod:`fetalsyngen_tpu.generator.pipeline`), not in per-class ``__call__``s —
-that is the TPU-first redesign.
+that is the jit-once redesign.
 """
 
 from __future__ import annotations
@@ -299,7 +299,7 @@ class FetalSynthGen:
 
         The reference adapts to the input volume's shape at runtime
         (``deformation/affine_nonrigid.py:105`` uses ``output.shape``); this
-        framework compiles static-shape TPU programs for ``cfg.shape`` by
+        framework compiles static-shape programs for ``cfg.shape`` by
         design, so a mismatched volume is a configuration error — raise a
         clear one instead of a reshape failure deep in the warp kernels.
         """
@@ -308,7 +308,7 @@ class FetalSynthGen:
         if got != want:
             raise ValueError(
                 f"generator is configured for shape {want} but the input "
-                f"volume is {got}. This framework compiles static-shape TPU "
+                f"volume is {got}. This framework compiles static-shape "
                 "programs: set the generator config's `shape` (and "
                 "`spatial_deform.size`) to the data's shape, or resample the "
                 "data (scripts/resample.py)."

@@ -1,6 +1,6 @@
 """The fixed-shape, jit-once, vmap-able synthesis pipeline.
 
-This is the TPU-native re-design of ``FetalSynthGen.generate/augment``
+This is the jit-once re-design of ``FetalSynthGen.generate/augment``
 (reference ``fetalsyngen/generator/model.py:94-229``): the entire
 seed -> GMM intensities -> flip/affine/nonlinear warp -> gamma -> bias field ->
 anisotropic resample -> noise -> resize-back chain compiles to ONE XLA program
@@ -55,27 +55,12 @@ from .params import GenParams, field_key, sample_params
 def intensity_stage(key: jax.Array, seeds: jnp.ndarray, p: GenParams) -> jnp.ndarray:
     """``intensity = mus[seeds] + sigmas[seeds] * N(0,1)``, clamped at 0.
 
-    On TPU the per-element table gather (``mus[seeds]``) costs ~150 ms per
-    16.7M voxels (any index pattern, measured on v5e) — it would dominate the
-    whole pipeline. The label table is tiny (~50 entries), so a vectorized
-    label sweep of compare+selects (~1 ms) replaces the gather; values are
-    identical.
+    Stray labels outside the table clamp to its ends (``mode="clip"``).
     """
     noise = jax.random.normal(field_key(key, "field_intensity"), seeds.shape, jnp.float32)
-    nlabels = p.mus.shape[0]
-    if jax.default_backend() == "tpu":
-        # clamp like jnp.take's OOB mode so both paths agree on stray labels
-        seeds_i = jnp.clip(seeds.astype(jnp.int32), 0, nlabels - 1)
-        mu = jnp.zeros(seeds.shape, jnp.float32)
-        sigma = jnp.zeros(seeds.shape, jnp.float32)
-        for lab in range(nlabels):
-            sel = seeds_i == lab
-            mu = jnp.where(sel, p.mus[lab], mu)
-            sigma = jnp.where(sel, p.sigmas[lab], sigma)
-    else:
-        flat = seeds.reshape(-1).astype(jnp.int32)
-        mu = jnp.take(p.mus, flat).reshape(seeds.shape)
-        sigma = jnp.take(p.sigmas, flat).reshape(seeds.shape)
+    flat = seeds.reshape(-1).astype(jnp.int32)
+    mu = jnp.take(p.mus, flat, mode="clip").reshape(seeds.shape)
+    sigma = jnp.take(p.sigmas, flat, mode="clip").reshape(seeds.shape)
     return jnp.maximum(mu + sigma * noise, 0.0)
 
 
@@ -96,8 +81,6 @@ def deformation_coords(key: jax.Array, p: GenParams, cfg: GeneratorCfg):
     xc, yc, zc = centered_grid(shape)
 
     if dcfg.nonlinear_transform:
-        # channel-first fields: a trailing channel dim of 3 would be padded
-        # to 128 TPU lanes (42x memory); per-channel volumes tile clean.
         Fx, Fy, Fz = _nonlin_field(key, p, cfg)
         xx1 = xc + Fx
         yy1 = yc + Fy
@@ -237,7 +220,7 @@ def _deform_separable(
     volumes_linear: list[jnp.ndarray],
     volumes_nearest: list[jnp.ndarray],
 ):
-    """TPU-native warp: affine triangular passes + small-displacement passes.
+    """Separable warp: affine triangular passes + small-displacement passes.
 
     Samples ``V[A (o - c1 + F(o)) + c2 - shift]`` like the reference
     (``deform_image``, ``affine_nonrigid.py:327-366``), with the composite OOB
@@ -301,9 +284,9 @@ def _deform_separable(
             return warp_affine_field_separable(vol, A, t, Fx, Fy, Fz, nearest=nearest)
         return warp_affine_separable(vol, A, t, nearest=nearest)
 
-    # Fast path: the image + segmentation pair shares one kernel per pass
-    # (identical sample positions; window staging and position math computed
-    # once). Extra linear volumes (load_image) take the single-volume path.
+    # Fast path: the image + segmentation pair shares each pass's sample
+    # positions. Extra linear volumes (load_image) take the single-volume
+    # path.
     if dcfg.nonlinear_transform and len(volumes_nearest) == 1:
         a, b = warp_affine_field_pair(volumes_linear[0], volumes_nearest[0], A, t, Fx, Fy, Fz)
         lin = [jnp.where(ok, a, 0.0)] + [
@@ -330,7 +313,7 @@ def deform_stage(
     Gate semantics match ``generate_deformation_and_flip``
     (``affine_nonrigid.py:122-162``): when the gate is off there is no flip
     and no warp. ``cfg.deform.warp_impl`` selects the exact trilinear gather
-    or the TPU-native separable warp.
+    or the separable axis-pass warp.
     """
     apply = p.deform_apply
     flip = jnp.logical_and(p.flip, apply)
@@ -401,7 +384,7 @@ def resample_noise_stage(
     # --- downsample to the logical corner [0:new_size] (synthseg.py:84-104).
     # The reference interpolates a product meshgrid with the full trilinear
     # kernel; on a product grid that factorizes into three 1-D operators,
-    # each an MXU matmul with the linear-mode OOB semantics folded into
+    # each a matmul with the linear-mode OOB semantics folded into
     # zeroed rows.
     # downsample grid size: sampled/overridden in params (exact f64-law
     # truncation, see sample_params); identity when the gate is off

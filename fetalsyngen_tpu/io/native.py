@@ -1,11 +1,12 @@
 """ctypes bindings for the native NIfTI loader (C++/zlib/pthreads).
 
-The compute path of this framework is JAX/Pallas; the host *runtime* path —
+The compute path of this framework is JAX/XLA; the host *runtime* path —
 file IO feeding the generator — is native C++ (``native/nifti_loader.cpp``),
 mirroring how the reference keeps its hot non-Python pieces in C++/CUDA.
-The library is built on first use with the system toolchain (no pybind11);
-if a toolchain is unavailable the callers fall back to the pure-Python
-reader in :mod:`fetalsyngen_tpu.io.nifti`.
+The library is built on first use with the system toolchain (no pybind11),
+and rebuilt from the source when a library left from another machine does
+not load; if no toolchain can build it the callers fall back to the
+pure-Python reader in :mod:`fetalsyngen_tpu.io.nifti`.
 """
 
 from __future__ import annotations
@@ -41,8 +42,15 @@ def _build() -> bool:
     try:
         subprocess.run(cmd, check=True, capture_output=True, timeout=120)
         return True
-    except Exception:
+    except (OSError, subprocess.SubprocessError):
         return False
+
+
+def _open():
+    try:
+        return ctypes.CDLL(str(_LIB_PATH))
+    except OSError:
+        return None
 
 
 def get_lib():
@@ -58,12 +66,11 @@ def get_lib():
             not _LIB_PATH.exists()
             or _LIB_PATH.stat().st_mtime < src.stat().st_mtime
         )
-        if stale and not _build():
-            _build_failed = True
-            return None
-        try:
-            lib = ctypes.CDLL(str(_LIB_PATH))
-        except OSError:
+        lib = None if stale and not _build() else _open()
+        if lib is None and not stale and _build():
+            # a library built elsewhere (other libc/zlib) — rebuild it here
+            lib = _open()
+        if lib is None:
             _build_failed = True
             return None
         lib.nifti_load.restype = ctypes.c_int

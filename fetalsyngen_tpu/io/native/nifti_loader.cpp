@@ -2,9 +2,9 @@
 // with a pthread pool for batch loads.
 //
 // Role (SURVEY §7 hard-part #5): the generator streams 4 seed NIfTIs per
-// sample; Python-side gzip+parse is the host bottleneck when feeding a TPU
-// pod. This is the runtime-native counterpart of the reference's C++/CUDA
-// extensions — the compute kernels moved to Pallas/XLA, the IO path moves
+// sample; Python-side gzip+parse is the host bottleneck when feeding an
+// accelerator. This is the runtime-native counterpart of the reference's C++/CUDA
+// extensions — the compute kernels moved to XLA, the IO path moves
 // to C++. Exposed to Python through ctypes (fetalsyngen_tpu/io/native.py);
 // no pybind11 dependency.
 //

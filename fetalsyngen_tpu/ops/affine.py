@@ -14,8 +14,9 @@ from jax import lax
 
 
 def _mm(a, b):
-    """f32 matmul — the backend's default matmul precision is bfloat16,
-    which loses ~3 decimal digits on the composed affine chain."""
+    """Full f32 matmul — at default precision a GPU may run it in TF32
+    (10-bit mantissa), which loses ~3 decimal digits on the composed affine
+    chain."""
     return jnp.matmul(a, b, precision=lax.Precision.HIGHEST)
 
 

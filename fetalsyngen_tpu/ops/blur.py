@@ -4,7 +4,7 @@ Replaces ``make_gaussian_kernel`` / ``gaussian_blur_3d``
 (reference: ``fetalsyngen/utils/generation.py:74-110``).
 
 The reference builds a kernel of dynamic length ``2*ceil(3*sigma)+1`` per call;
-on TPU a dynamic kernel length would force recompilation, so we evaluate a
+under jit a dynamic kernel length would force recompilation, so we evaluate a
 fixed maximum-length kernel and zero taps beyond ``ceil(3*sigma)``. Because the
 reference's taps are exactly ``exp(-(t/sigma)^2/2)`` at integer offsets ``t``
 normalized over the truncated support, masking + renormalizing over the fixed

@@ -1,4 +1,4 @@
-"""Fixed-shape 3D interpolation primitives (JAX/XLA, TPU-first).
+"""Fixed-shape 3D interpolation primitives (JAX/XLA).
 
 These replace the reference's voxel kernels in ``fetalsyngen/utils/generation.py``:
 
@@ -7,7 +7,7 @@ These replace the reference's voxel kernels in ``fetalsyngen/utils/generation.py
 - ``zoom`` == ``myzoom_torch`` (``generation.py:310-397``), whose Python
   per-index loops are replaced by three vectorized separable 1-D interpolations.
 
-Design notes (TPU):
+Design notes:
 - All shapes are static; coordinates/indices may be traced values, so the same
   compiled program serves every random deformation.
 - The trilinear gather fetches all 8 corners with a single ``lax.gather`` of
@@ -48,10 +48,8 @@ def gather_trilinear(vol: jnp.ndarray, x: jnp.ndarray, y: jnp.ndarray, z: jnp.nd
     yf, wy = _corner_indices(y.reshape(-1), H)
     zf, wz = _corner_indices(z.reshape(-1), W)
 
-    # Flat 1-D gathers: TPU tiles pad small trailing dims to 128 lanes, so an
-    # (N, 2, 2, 2) slice-gather would cost 64x its logical memory. Eight flat
-    # row-major gathers keep every intermediate at (N,) and let XLA fuse the
-    # corner FMA tree.
+    # Eight flat row-major gathers keep every intermediate at (N,) and let
+    # XLA fuse the corner FMA tree.
     flat = vol.reshape(-1)
     base = (xf * H + yf) * W + zf
 

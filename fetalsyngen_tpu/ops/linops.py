@@ -1,12 +1,10 @@
-"""Separable voxel ops as MXU matmuls — the TPU-native hot path.
+"""Separable voxel ops as dense matmuls — the pipeline's hot path.
 
 Every separable 1-D operation in the pipeline (Gaussian blur, zoom,
-anisotropic resample) is a banded linear operator along one axis. On TPU the
-idiomatic implementation is NOT a conv or a gather: it is a dense
-``(out_dim, in_dim)`` matrix applied with ``dot_general`` so the work lands on
-the 128x128 systolic array. For a 256^3 volume one axis pass is a
-``256x256 @ 256x65536`` matmul (~4.3 GFLOP) — microseconds on the MXU, where
-the equivalent 1-channel 3D conv measured ~870 ms.
+anisotropic resample) is a banded linear operator along one axis,
+implemented as a dense ``(out_dim, in_dim)`` matrix applied with
+``dot_general``. For a 256^3 volume one axis pass is a
+``256x256 @ 256x65536`` matmul (~4.3 GFLOP).
 
 The small operator matrices are built per sample from *traced* parameters
 (sigma, zoom factors, logical sizes), so one compiled program serves every
@@ -37,11 +35,12 @@ _PREC_OVERRIDE: lax.Precision | None = None
 def precision_scope(prec: lax.Precision):
     """TRACE-time matmul precision override for a code region.
 
-    The framework's numerical contract is f32 (``Precision.HIGHEST``, the
-    6-pass bf16 expansion on TPU) — golden tests and the replay-faithful
-    host artifact path depend on it. The batched artifact STREAM opts into
-    ``Precision.DEFAULT`` (single-pass bf16, ~6x MXU throughput) inside this
-    scope: its outputs are synthetic degradations that immediately receive
+    The framework's numerical contract is f32 (``Precision.HIGHEST``; an
+    f32 contraction left at default precision may run in TF32 on a GPU) —
+    golden tests and the replay-faithful host artifact path depend on it.
+    The batched artifact STREAM opts into ``Precision.DEFAULT`` (TF32 for
+    f32 operands on a GPU; bf16 operands under :func:`storage_scope`)
+    inside this scope: its outputs are synthetic degradations that immediately receive
     Rician noise/gamma/voids, so sub-percent matmul error is invisible,
     and the stream is documented as non-replay-exact anyway
     (``generator/artifacts/batched.py``). The scope only affects operations
@@ -68,17 +67,17 @@ _STORE_OVERRIDE = None
 def storage_scope(dtype):
     """TRACE-time INTERMEDIATE-STORAGE dtype override for a code region.
 
-    ``precision_scope`` only changes what the MXU computes — every pass still
-    reads and writes f32 HBM buffers, and the scanner's matmul chains are
-    bandwidth-bound (~0.43 GB per 384^3 f32 touch). Under
+    ``precision_scope`` only changes how the matmuls compute — every pass
+    still reads and writes f32 buffers, and the scanner's matmul chains
+    move ~0.43 GB per 384^3 f32 touch. Under
     ``storage_scope(jnp.bfloat16)`` the chain helpers (:func:`axis_mm`,
     ``warp._shear_pass_pair_mm``, the scanner's Mn2z/spread contractions)
     keep intermediates in bf16: operands are cast INTO the matmuls (the
     convert fuses into the dot's operand read) and accumulation stays f32
     via ``preferred_element_type``, so only the storage narrows — half the
-    HBM traffic on every interior pass. Stage boundaries that feed
-    non-matmul consumers (Pallas hat passes, the recon accumulator) emit
-    f32 through the producing matmul's epilogue (``out_f32=True``).
+    memory traffic on every interior pass. Stage boundaries that feed
+    non-matmul consumers (the recon accumulator) emit f32 through the
+    producing matmul's epilogue (``out_f32=True``).
 
     STREAM-ONLY, like the precision override: relative error per pass is
     ~2^-9, the artifact outputs receive Rician noise/gamma afterwards, and
@@ -120,7 +119,7 @@ def einsum_store(
     """``jnp.einsum(spec, M, x)`` honoring the storage scope.
 
     Outside a scope: the framework's f32 contract (``_prec()`` precision).
-    Inside: bf16 x bf16 -> f32-accumulate MXU form, output narrowed back to
+    Inside: bf16 x bf16 -> f32-accumulate form, output narrowed back to
     the storage dtype unless ``out_f32`` marks a segment boundary.
 
     ``store``: explicit storage dtype (or None), for code traced inside a
@@ -214,7 +213,7 @@ def interp_matrix(
 def apply_axis_matrix(
     vol: jnp.ndarray, M: jnp.ndarray, axis: int, out_f32: bool = False, store=_UNSET
 ) -> jnp.ndarray:
-    """Contract ``vol``'s ``axis`` with operator ``M`` (out, in) on the MXU.
+    """Contract ``vol``'s ``axis`` with operator ``M`` (out, in) as a matmul.
 
     Honors :func:`storage_scope` (bf16 intermediates on the stream path);
     ``out_f32`` marks a segment boundary whose consumer needs f32. See
@@ -237,7 +236,7 @@ def apply_separable(vol: jnp.ndarray, Ms: tuple[jnp.ndarray, ...]) -> jnp.ndarra
 
 
 def gaussian_blur_mm(vol: jnp.ndarray, stds: jnp.ndarray, half_len: int) -> jnp.ndarray:
-    """Separable Gaussian blur via three MXU matmuls (== ``gaussian_blur_3d``)."""
+    """Separable Gaussian blur via three matmuls (== ``gaussian_blur_3d``)."""
     Ms = tuple(toeplitz_blur_matrix(stds[a], vol.shape[a], half_len) for a in range(3))
     return apply_separable(vol, Ms)
 

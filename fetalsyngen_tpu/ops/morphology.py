@@ -1,4 +1,4 @@
-"""Binary morphology on voxel grids (TPU: separable box sums on the MXU).
+"""Binary morphology on voxel grids (separable box sums as matmuls).
 
 Reference parity with ``fetalsyngen/generator/artifacts/utils.py:163-210``:
 ``apply_kernel`` (cube box-sum conv), ``erode``, ``dilate`` — all cube

@@ -2,7 +2,7 @@
 
 Reference parity with ``fetalsyngen/generator/artifacts/utils.py``:
 - ``perlin_noise_3d`` / ``fractal_noise_3d`` == ``generate_perlin_noise_3d`` /
-  ``generate_fractal_noise_3d`` (``utils.py:224-388``), re-designed for TPU:
+  ``generate_fractal_noise_3d`` (``utils.py:224-388``), re-designed gather-free:
   lattice gradients are *repeated* into cell-constant volumes (cells are large,
   32^3+), so the corner dot-products are pure elementwise math — no gathers.
   Note: the reference reseeds NumPy with time.time() here (``utils.py:365-367``),
@@ -33,7 +33,7 @@ def _perlin_axis_mats(s: int, r: int) -> tuple[np.ndarray, np.ndarray]:
         sum_{a,b,c} [w_a(d0)*(d0-a)] * w_b(d1) * w_c(d2) * gx[(i0+a)%r, ...]
 
     i.e. a rank-1 chain of three (s, r) matrices applied to the (r, r, r)
-    lattice — small MXU matmuls instead of materializing 8 corners x 3
+    lattice — small matmuls instead of materializing 8 corners x 3
     gradient volumes. ``A`` carries the plain fade weights, ``Ad`` the
     fade-weighted displacement ``w_a(d)*(d-a)``. The ``% r`` wrap reproduces
     the reference's tileable ``gradients[-1] = gradients[0]`` identification.
@@ -173,8 +173,8 @@ def mog_3d(
 
     # An axis-aligned Gaussian factorizes per axis, so the mixture is a rank-N
     # tensor contraction: exp evaluations drop from N*D*H*W (a scan of full
-    # volumes — ~3.3e9 exps for 200 centers at 256^3, seconds of VPU
-    # transcendentals) to N*(D+H+W), and the accumulation lands on the MXU.
+    # volumes — ~3.3e9 exps for 200 centers at 256^3) to N*(D+H+W), and the
+    # accumulation is a matmul.
     def axis_factor(axis):
         g = jnp.arange(shape[axis], dtype=jnp.float32)[None, :]
         return jnp.exp(-0.5 * ((g - centers[:, axis : axis + 1]) / sigmas[:, axis : axis + 1]) ** 2)

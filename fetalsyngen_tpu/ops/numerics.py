@@ -1,4 +1,4 @@
-"""Exactly-rounded scalar numerics for f32-only TPU programs.
+"""Exactly-rounded scalar numerics for f32-only device programs.
 
 The reference computes its integer grid sizes with float64 host math, e.g.
 ``new_size = (shape * input_res / spacing).astype(int)``

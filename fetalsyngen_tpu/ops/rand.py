@@ -1,8 +1,8 @@
 """Vector-math samplers for small non-uniform draws inside traced programs.
 
 ``jax.random.gamma`` / ``poisson`` / ``beta`` lower to rejection loops
-(``lax.while_loop``), which cost tens of milliseconds on TPU even for a few
-hundred scalars — serial loop dispatch dominates. The artifact engines draw
+(``lax.while_loop``): serial loops inside the batch program even for a few
+hundred scalars. The artifact engines draw
 only a handful of such scalars per sample (reference
 ``fetalsyngen/generator/augmentation/artifacts.py:104,110,499-585`` uses host
 NumPy), so the stream path uses closed-form equivalents instead:
@@ -27,9 +27,7 @@ def gamma_int(key: jax.Array, k: int, shape: tuple = ()) -> jnp.ndarray:
     """Gamma(k, 1) for INTEGER k as a sum of exponentials (no rejection).
 
     Drawn as ``k`` separate same-shape uniforms rather than one draw with a
-    trailing length-``k`` dim: tiny 3-D shapes like (200, 3, 3) trigger a
-    pathological ~100 ms relayout on the TPU backend (measured), while a few
-    2-D draws are microseconds.
+    trailing length-``k`` dim, keeping every draw 1-D/2-D.
     """
     acc = None
     for j in range(int(k)):

@@ -1,11 +1,8 @@
-"""TPU-native 3D warp: triangular axis passes + hat-accumulate Pallas kernel.
+"""3D warps as separable axis passes: triangular hat passes + matmuls.
 
 The reference warps volumes with one trilinear gather at arbitrary coordinates
-(``fast_3D_interp_torch``, ``generation.py:204-288``). Arbitrary per-element
-gathers are the slowest op on TPU (measured ~150 ms per 16.7M elements on v5e,
-~70x below memory bandwidth; Mosaic's ``dynamic_gather`` is no faster). This
-module reaches memory-bandwidth-class speed with a design that needs NO
-gathers at all:
+(``fast_3D_interp_torch``, ``generation.py:204-288``). This module factors the
+warp into single-axis resampling passes instead:
 
 1. **UL factorization.** The affine map ``o -> A o + t`` factors as
    ``A = U L`` (upper x unit-lower). A triangular map warps EXACTLY as a
@@ -18,11 +15,12 @@ gathers at all:
 2. **Nonrigid stage.** ``out(o) = W(o + F(o))`` for the smooth bounded
    low-frequency field: three more axis passes using the displacement volumes
    at grid points (first-order triangular inverse; error O(|F|^2/L) voxels).
-3. **Hat-accumulate kernel.** Each axis pass computes, per output element,
-   ``sum_m hat(pos - (k + n0 + m)) * row[k + n0 + m]`` where ``n0`` is a
-   per-block base offset (positions within a block vary by only a few voxels
-   because the maps are smooth). Every term is a UNIFORM dynamic lane-slice
-   of an edge-padded row plus vectorized FMAs — the VPU's fast path.
+3. **Hat pass.** Each axis pass samples, per output element, the edge-clamped
+   two-tap linear (or nearest) interpolant of its own source row at
+   ``pos = ci*row_i + cj*row_j + ck*lane + bias (+ disp)``: a row-local
+   ``take_along_axis`` plus a lerp, which XLA compiles to one memory-bound
+   fusion. Passes without a displacement or row_i term run as batched
+   matmuls against banded (J, K, S) operators instead.
 
 Boundary semantics: positions are edge-clamped (reference ``myzoom``-style);
 the reference's linear-mode OOB zeroing is applied by the pipeline via a
@@ -31,265 +29,20 @@ closed-form composite mask.
 
 from __future__ import annotations
 
-import contextlib
 import functools
-import os
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-# Left pad (lanes) of the staged source rows. Sized so that NO valid
-# element's window base is ever clamped (see _win_geometry): a valid element
-# at lane l has rel > -l, so the block minimum satisfies
-# n0 >= -(lane0 + LB - 1) and base = pad + lane0 + n0 >= pad - LB + 1 — pad
-# >= LB keeps every base in-bounds. The right side is sized so n0 up to the
-# largest possible valid value (S - 1 - lane0, a block whose only valid
-# element sits at its first lane) also fits: width = S + pad + LB + 128.
-PAD = 128
-
-
-def _win_geometry(S: int, lane_block: int, tight: bool = False):
-    """(pad, width, WIN) for one pass: bounds chosen so every valid n0 fits.
-
-    Proof sketch: the kernel reads its window at the 128-ALIGNED base and
-    folds the sub-128 remainder ``off`` into the tap index, so window slices
-    reach c + LB - 1 with c <= ceil((maxspan + 128)/8)*8 - 1 <= 255 (maxspan
-    <= V1_MAXSPAN = 128) — WIN = LB + 256 covers them. hi clamp
-    n0 <= S - 1 - lane0 covers any block minimum of valid rel
-    (rel <= S - 1 - lane <= S-1-lane0); then base <= pad + S - 1,
-    q*128 <= pad + S - 128 (pad + S is 128-divisible), and
-    q*128 + WIN <= S + pad + LB + 128 = width — the high-side bound holds
-    for ANY 128-multiple pad. lo clamp n0 >= -(pad + lane0) is never binding
-    for blocks holding an included element: bounds-included rel >
-    -lane - EPS_BOUNDS, so n0 >= -(lane0 + LB - 1) - 1 >= -(pad + lane0)
-    since pad >= LB (see _block_bounds).
-
-    ``tight`` is reserved for callers that can PROVE every row's shift
-    magnitude |rel| stays under 128 (then pad = 128 suffices); no current
-    caller can — the pipeline's L rows reach (|L20|+|L21|)*255 + FIELD_LIM
-    and the scanner's quarter-turn residual shears reach tan(22.5°)*cube —
-    so it must stay False.
-    """
-    pad = PAD if tight else max(PAD, lane_block)
-    return pad, S + pad + lane_block + 128, lane_block + 256
-
-
-_BIG = 1e9
-
-# FSG_PALLAS_INTERPRET=1 runs the Pallas kernels in interpreter mode on any
-# backend — used by tests to exercise the kernel logic without a TPU.
-_INTERPRET = os.environ.get("FSG_PALLAS_INTERPRET") == "1"
-
-# Dynamic off-switch: when True every hat-pass entry point takes the
-# ``_hat_pass_jnp`` XLA fallback even on a TPU backend.  The gate is read at
-# TRACE time, so flipping it only affects subsequent traces — use
-# :func:`force_jnp_fallback`, which clears the jit caches around the flip.
-# Purpose: structural on-chip agreement tests between the compiled Mosaic
-# kernels and the fallback at full pipeline scale (no hand-pinned goldens).
-_FORCE_JNP = os.environ.get("FSG_FORCE_JNP") == "1"
-
-
-def _use_pallas() -> bool:
-    if _FORCE_JNP:
-        return False
-    return jax.default_backend() == "tpu" or _INTERPRET
-
-
-@contextlib.contextmanager
-def force_jnp_fallback():
-    """Run the enclosed block with Pallas disabled (XLA hat-pass fallback).
-
-    Clears the jit caches on entry and exit so module-level jitted programs
-    (e.g. ``generator.pipeline._synth_core_impl``) retrace and pick up the
-    flipped gate; the on-disk persistent compile cache is untouched, so
-    re-enabling Pallas re-lowers from cache rather than recompiling.
-
-    .. warning:: NOT safe to enter while other threads or a prefetching
-       stream are dispatching jitted work: the gate is a process-wide module
-       global read at trace time, and ``jax.clear_caches()`` is process-wide
-       — concurrent dispatches would silently retrace onto the fallback path
-       (and pay a full retrace again on exit). Single-threaded
-       test/diagnostic use only.
-    """
-    global _FORCE_JNP
-    prev = _FORCE_JNP
-    _FORCE_JNP = True
-    jax.clear_caches()
-    try:
-        yield
-    finally:
-        _FORCE_JNP = prev
-        jax.clear_caches()
 
 
 # ---------------------------------------------------------------------------
-# Hat-accumulate pass kernels
+# Hat passes
 # ---------------------------------------------------------------------------
-
-# 64 rows/block: with the per-block scalar reductions moved to XLA
-# (_block_bounds) the per-grid-step fixed cost dominates the pass, and 64
-# rows halves the step count vs 32 at still-tight span budgets (measured
-# best of {32, 64, 128} on v5e at 384^3). Requires H % 64 == 0 (_v1_ok).
-BLOCK_ROWS = 64
-
-
-TAP_CHUNK = 8  # taps per predicated chunk (see span_dyn below)
-
-# Widest whole-row lane block known-good on hardware (see the cap comment
-# in _hat_pass_impl); module-level so diagnostics can probe other widths.
-WHOLE_ROW_MAX = 384
-# Finer chunk for the deform FIELD passes: after the L21 peel their adaptive
-# spans are the field swing alone (~6-15 taps), where half-empty 8-chunks
-# waste ~10% of the pass (measured 2.01 -> 1.82 ms/vol at 256^3 on v5e).
-FIELD_TAP_CHUNK = 4
-
-
-def _hat_kernel(
-    coef_ref, b_ref, x_ref, disp_ref, o_ref, acc_ref, s_ref,
-    *, S, H_rows, maxspan, nearest, with_disp, lane_block=128, lane_affine=False,
-    io_dtype=jnp.float32, block_rows=BLOCK_ROWS, tight=False, tap_chunk=TAP_CHUNK,
-):
-    """One axis pass over a (BLOCK_ROWS, lane_block) output block.
-
-    coef_ref: (1, 1, 4) SMEM  — (ci, cj, ck, bias) of the affine position map
-        pos = ci * row_i + cj * row_j + ck * lane + bias,
-        with rows enumerated as row = row_i * H_rows + row_j. (The table is
-        shipped as (N, 1, 4) so the block's trailing dims equal the array's —
-        Mosaic requires the last two block dims be (8,128)-divisible OR equal
-        to the array dims, and a (1, 4) block over an (N, 4) table violates
-        that on real hardware.)
-    b_ref:    (1, 1, 2) SMEM — this block's exact valid-masked (min, max) of
-        ``rel`` (:func:`_block_bounds`). Precomputing the extremes on XLA
-        removes the kernel's cross-lane min/max reductions — measured ~1 us
-        PER REDUCTION per block on v5e (vector->scalar sync), which
-        dominated the whole pass (2 reductions x 4608 blocks ~ 10 ms of the
-        16 ms dz pass at 384^3).
-    x_ref:    (BLOCK_ROWS, S) VMEM — raw source rows; edge padding is staged
-        in the kernel (s_ref) instead of materializing a padded HBM copy.
-    disp_ref: (BLOCK_ROWS, lane_block) VMEM — optional per-elem displacement.
-    acc_ref:  (BLOCK_ROWS, lane_block) VMEM scratch — tap accumulator (lets
-        the tap loop run as TAP_CHUNK-sized ``pl.when`` chunks skipped past
-        the block's true spread; see span_dyn).
-    s_ref:    (BLOCK_ROWS, width) VMEM scratch — edge-padded rows
-        (width from :func:`_win_geometry`).
-    """
-    r_blk = pl.program_id(0)
-    h_blk = pl.program_id(1)
-
-    ci = coef_ref[0, 0, 0]
-    cj = coef_ref[0, 0, 1]
-    ck = coef_ref[0, 0, 2]
-    bias = coef_ref[0, 0, 3]
-
-    B = block_rows
-    LB = lane_block
-    pad, width, WIN = _win_geometry(S, LB, tight)
-
-    # stage edge-padded rows once per row block (lane dim iterates fastest)
-    @pl.when(h_blk == 0)
-    def _stage():
-        # HBM blocks may be bf16 (stream storage scope); the staged window
-        # and all tap math stay f32 — only the HBM I/O narrows
-        xf = x_ref[:].astype(jnp.float32)
-        s_ref[:, pad : pad + S] = xf
-        s_ref[:, :pad] = jnp.broadcast_to(xf[:, :1], (B, pad))
-        s_ref[:, pad + S :] = jnp.broadcast_to(xf[:, S - 1 : S], (B, width - pad - S))
-
-    rows = r_blk * B + jax.lax.broadcasted_iota(jnp.int32, (B, LB), 0)
-    row_i = (rows // H_rows).astype(jnp.float32)
-    row_j = (rows % H_rows).astype(jnp.float32)
-    lanes = h_blk * LB + jax.lax.broadcasted_iota(jnp.int32, (B, LB), 1)
-    lanes_f = lanes.astype(jnp.float32)
-
-    pos = ci * row_i + cj * row_j + ck * lanes_f + bias
-    if with_disp:
-        if lane_affine:
-            # disp_ref is a (3, LB) per-lane affine table (see hat_pass_pair)
-            lt = disp_ref[:]
-            pos = pos + lt[0, :][None, :] * row_i + lt[1, :][None, :] * row_j + lt[2, :][None, :]
-        else:
-            pos = pos + disp_ref[:]
-
-    sat_lo = pos <= 0.0
-    sat_hi = pos >= S - 1.0
-
-    rel = pos - lanes_f
-    n0 = jnp.floor(b_ref[0, 0, 0]).astype(jnp.int32)
-    # Bounds are NEVER binding for a block holding a valid element (see
-    # _win_geometry) — they only keep all-saturated blocks in-bounds.
-    n0 = jnp.clip(n0, -(pad + h_blk * LB), S - 1 - h_blk * LB)
-
-    # Mosaic supports only 128-aligned dynamic lane slices, so the window is
-    # taken at the 128-aligned base and the sub-128 remainder ``off`` is
-    # FOLDED INTO THE TAP INDEX instead of rolled out of the window: tap c
-    # of the aligned window is offset m = c - off of the exact base, so the
-    # weights use d0 + off and the static tap loop spans maxspan + 128 lanes
-    # with two-sided chunk predication (only ~spread/8 + 1 chunks run).
-    # Removes the 7-roll alignment ladder (~2.7 ms/pass at 384^3).
-    base = pad + h_blk * LB + n0
-    q = base // 128
-    off = base - q * 128
-    win = s_ref[:, pl.ds(pl.multiple_of(q * 128, 128), WIN)]
-    # win[:, c] == padded[rows, 128*q + c]; element taps sit at c = off + m.
-
-    # Tap offsets clamp into the window: a position whose within-block spread
-    # exceeds maxspan samples a clamped (nearby) tap instead of silently
-    # accumulating zero.
-    #
-    # span_dyn = taps this block actually needs: every valid element's rel
-    # lies in [n0, mx], so taps m >= floor(mx) - n0 + 2 have exactly zero
-    # weight (linear: |d0 - m| >= 1; nearest: ri_rel < span_dyn). The static
-    # tap loop runs in TAP_CHUNK-sized pl.when chunks gated to
-    # [off, off + span_dyn) — bit-identical output, ~maxspan/spread x less
-    # VPU work on smooth-field and small-shear passes.
-    span_dyn = jnp.floor(b_ref[0, 0, 1]).astype(jnp.int32) - n0 + 2
-    off_f = off.astype(jnp.float32)
-    lo_c = off
-    hi_c = off + jnp.minimum(span_dyn, maxspan)
-    acc_ref[:] = jnp.zeros((B, LB), jnp.float32)
-    if nearest:
-        ri_rel = jnp.clip(
-            jnp.round(pos) - lanes_f - n0.astype(jnp.float32), 0.0, maxspan - 1.0
-        ) + off_f
-        for c0 in range(0, maxspan + 128, tap_chunk):
-
-            @pl.when(jnp.logical_and(c0 < hi_c, c0 + tap_chunk > lo_c))
-            def _chunk(c0=c0):
-                acc = acc_ref[:]
-                for m in range(c0, c0 + tap_chunk):
-                    wgt = (ri_rel == float(m)).astype(jnp.float32)
-                    acc = acc + wgt * win[:, m : m + LB]
-                acc_ref[:] = acc
-
-    else:
-        d0 = jnp.clip(rel - n0.astype(jnp.float32), 0.0, maxspan - 1.0) + off_f
-        for c0 in range(0, maxspan + 128, tap_chunk):
-
-            @pl.when(jnp.logical_and(c0 < hi_c, c0 + tap_chunk > lo_c))
-            def _chunk(c0=c0):
-                acc = acc_ref[:]
-                for m in range(c0, c0 + tap_chunk):
-                    wgt = jnp.maximum(0.0, 1.0 - jnp.abs(d0 - float(m)))
-                    acc = acc + wgt * win[:, m : m + LB]
-                acc_ref[:] = acc
-
-    acc = acc_ref[:]
-
-    # edge values from the f32 scratch (staged at h_blk == 0; persists
-    # across lane steps) — avoids narrow column slices of a bf16 HBM block,
-    # which Mosaic handles less uniformly than full-block reads
-    lo_edge = s_ref[:, pad : pad + 1]
-    hi_edge = s_ref[:, pad + S - 1 : pad + S]
-    o_ref[:] = jnp.where(sat_lo, lo_edge, jnp.where(sat_hi, hi_edge, acc)).astype(
-        io_dtype
-    )
 
 
 def _hat_pass_jnp(x2d, pos, nearest):
-    """Reference/CPU fallback with identical semantics (XLA gathers)."""
+    """Edge-clamped two-tap resample of each row of ``x2d`` at ``pos``."""
     S = x2d.shape[1]
     sat_lo = pos <= 0.0
     sat_hi = pos >= S - 1.0
@@ -309,284 +62,84 @@ def _hat_pass_jnp(x2d, pos, nearest):
     return out
 
 
-# Validity/ulp margin for the XLA-side block-bounds precompute: the kernel
-# and the precompute evaluate the SAME f32 position polynomial, but Mosaic
-# and XLA may schedule/fuse it differently (FMA contraction), so per-element
-# positions can disagree by a few ulps (<~3e-5 at |pos| <= 512). The
-# precompute therefore (a) includes elements within EPS of the saturation
-# boundaries and (b) pads the (min, max) by EPS — taps added by the padding
-# carry exactly zero hat weight, so outputs are bit-identical while
-# ulp-level disagreement can never exclude a kernel-valid element. EPS must
-# stay < 0.5 so the _win_geometry lower-clip proof holds.
-EPS_BOUNDS = 0.05
+def _pass_positions(coefs, disp, shape, out_len):
+    """(D*H, out_len) f32 sample positions of one axis pass.
 
-
-def _block_bounds(
-    coefs, per_slice, disp, lane_affine, R, OW, H_rows, S, lane_block,
-    block_rows=BLOCK_ROWS,
-):
-    """Per-(row-block, lane-block) enclosing (lo, hi) of ``rel = pos - lane``
-    over a block's valid elements, shipped to the hat kernels via SMEM.
-
-    Replaces the kernels' in-kernel cross-lane min/max reductions — measured
-    ~1 us PER REDUCTION per block on v5e (vector->scalar sync), i.e. ~10 ms
-    of a 16 ms dz pass at 384^3. Computed ANALYTICALLY, not by reducing the
-    full position grid (a fused 56M-element masked reduce still costs ~3 ms
-    in XLA): row blocks never straddle slices (``H % BLOCK_ROWS == 0`` is a
-    Pallas-path precondition), so ``row_i`` is constant per block and the
-    position polynomial is affine in ``row_j`` for each lane — its extremes
-    are corner evaluations, vectorized over (row_block, lane) and reduced
-    over each lane block. A displacement VOLUME contributes through interval
-    arithmetic on its per-block (min, max) — the only real array reduce, at
-    HBM-bandwidth cost.
-
-    Validity masking is replaced by clamping to the per-lane-block range any
-    valid element can occupy (valid rel in (-lane - eps, S-1+eps - lane)) —
-    enclosing, never excluding. Fully-saturated blocks may therefore run a
-    few zero-effect taps (their outputs come from the kernel's saturation
-    select), instead of the brute-force path's exact skip; interior blocks
-    get corner-exact bounds. Bounds are padded by EPS_BOUNDS so ulp-level
-    Mosaic/XLA scheduling differences in the position math can never
-    exclude a kernel-valid element (padding taps carry zero hat weight).
+    ``coefs`` is a 4-tuple ``(ci, cj, ck, bias)`` or a per-slice (D, 4)
+    table; ``disp`` is None, a (D, H, out_len) displacement volume, or a
+    (3, out_len) per-lane affine table ``disp = A0*row_i + A1*row_j + A2``.
     """
-    B = block_rows
-    nrb = R // B
-    nh = OW // lane_block
-    bps = H_rows // B  # row blocks per slice
-    rb = jnp.arange(nrb, dtype=jnp.int32)
-    i_blk = (rb // bps).astype(jnp.float32)[:, None]  # (nrb, 1)
-    j0 = ((rb % bps) * B).astype(jnp.float32)[:, None]
-    lanes = jnp.arange(OW, dtype=jnp.float32)[None, :]  # (1, OW)
-    if per_slice:
-        cs = coefs[rb // bps]  # (nrb, 4)
-        ci, cj, ck, bias = (cs[:, i : i + 1] for i in range(4))
+    D, H, _ = shape
+    R = D * H
+    if isinstance(coefs, jnp.ndarray) and coefs.ndim == 2:
+        c = jnp.repeat(coefs.astype(jnp.float32), H, axis=0)
     else:
-        ci, cj, ck, bias = (coefs[i] for i in range(4))
-    # rel(j, l) = base(l) + slope_j(l) * j   (j in [j0, j0 + B))
-    base = ci * i_blk + bias + (ck - 1.0) * lanes
-    slope_j = cj
-    if lane_affine:
-        base = base + disp[0][None, :] * i_blk + disp[2][None, :]
-        slope_j = slope_j + disp[1][None, :]
-    swing = slope_j * (B - 1.0)
-    at_j0 = base + slope_j * j0
-    fmin = at_j0 + jnp.minimum(swing, 0.0)
-    fmax = at_j0 + jnp.maximum(swing, 0.0)
-    if disp is not None and not lane_affine:
-        # displacement volume: per-block interval arithmetic on its extremes
-        d4 = disp.reshape(nrb, B, nh, lane_block)
-        dmn = jnp.min(d4, axis=(1, 3))
-        dmx = jnp.max(d4, axis=(1, 3))
-        f4 = fmin.reshape(nrb, nh, lane_block)
-        g4 = fmax.reshape(nrb, nh, lane_block)
-        mn = jnp.min(f4, axis=2) + dmn
-        mx = jnp.max(g4, axis=2) + dmx
-        l0 = (jnp.arange(nh, dtype=jnp.float32) * lane_block)[None, :]
-        mn = jnp.maximum(mn, -(l0 + lane_block - 1.0) - EPS_BOUNDS)
-        mx = jnp.minimum(mx, S - 1.0 + EPS_BOUNDS - l0)
-    else:
-        # Clamp per lane (tighter than per block), EXCLUDING lanes whose
-        # whole row-block saturates: their clamped interval is empty
-        # (lo > hi), their outputs come from the kernel's saturation select
-        # (taps are discarded), and keeping their clamped rel would stretch
-        # the block interval by up to the saturated-lane reach — enough to
-        # push VALID elements past maxspan on wide (whole-row) lane blocks
-        # where low-lane saturation and far-lane extremes share one block.
-        lo = jnp.maximum(fmin, -lanes - EPS_BOUNDS)
-        hi = jnp.minimum(fmax, S - 1.0 + EPS_BOUNDS - lanes)
-        empty = lo > hi
-        lo = jnp.where(empty, jnp.inf, lo)
-        hi = jnp.where(empty, -jnp.inf, hi)
-        mn = jnp.min(lo.reshape(nrb, nh, lane_block), axis=2)
-        mx = jnp.max(hi.reshape(nrb, nh, lane_block), axis=2)
-        # fully-saturated blocks: empty interval -> any in-window point (the
-        # kernel's saturation select produces every output)
-        all_empty = mn > mx
-        mn = jnp.where(all_empty, 0.0, mn)
-        mx = jnp.where(all_empty, 0.0, mx)
-    mn = mn - EPS_BOUNDS
-    mx = mx + EPS_BOUNDS
-    # (n_row_blocks * n_lane_blocks, 1, 2): trailing block dims equal the
-    # array dims (same Mosaic SMEM tiling rule as the coef table).
-    return jnp.stack([mn, mx], axis=-1).reshape(-1, 1, 2)
+        c = jnp.stack([jnp.asarray(v, jnp.float32) for v in coefs])[None, :]
+    rows = jnp.arange(R, dtype=jnp.float32)
+    ri = jnp.floor(rows / H)[:, None]
+    rj = rows[:, None] - ri * H
+    lanes = jnp.arange(out_len, dtype=jnp.float32)[None, :]
+    pos = c[:, 0:1] * ri + c[:, 1:2] * rj + c[:, 2:3] * lanes + c[:, 3:4]
+    if disp is not None and disp.ndim == 2 and disp.shape[0] == 3:
+        pos = pos + disp[0][None, :] * ri + disp[1][None, :] * rj + disp[2][None, :]
+    elif disp is not None:
+        pos = pos + disp.reshape(R, out_len)
+    return pos
 
 
-def hat_pass(
-    vol, coefs, disp, shape, maxspan, nearest, out_len=None, unit_slope=False,
-    tap_chunk=TAP_CHUNK,
-):
+def hat_pass(vol, coefs, disp, shape, nearest, out_len=None):
     """Resample the LAST axis of ``vol`` (D, H, W) at affine(+disp) positions.
 
-    pos(i, j, k) = c0*i + c1*j + c2*k + c3 [+ disp[i,j,k]] in last-axis voxel
-    units; edge-clamped interpolation (linear or nearest). ``out_len``
-    optionally changes the resampled axis length (output (D, H, out_len)).
-    ``unit_slope=True``: see :func:`hat_pass_pair`. ``tap_chunk``: taps per
-    predicated kernel chunk — finer chunks waste less work on small-span
-    passes (see FIELD_TAP_CHUNK).
+    pos(i, j, k) = c0*i + c1*j + c2*k + c3 [+ disp] in last-axis voxel units
+    (see :func:`_pass_positions` for the coefficient and displacement forms);
+    edge-clamped interpolation (linear or nearest). ``out_len`` optionally
+    changes the resampled axis length (output (D, H, out_len)).
 
-    Honors :func:`linops.storage_scope` (bf16 HBM I/O; tap math stays f32).
-    The scope is read HERE (caller trace time) and threaded into the jitted
-    impl as a static arg — see ``linops.einsum_store`` on why.
+    Honors :func:`linops.storage_scope` (narrow source/output storage;
+    position and lerp math stay f32). The scope is read HERE (caller trace
+    time) and threaded into the jitted impl as a static arg — see
+    ``linops.einsum_store`` on why.
     """
     from .linops import _store_dtype
 
     return _hat_pass_impl(
-        vol, coefs, disp, shape, maxspan, nearest, out_len=out_len,
-        unit_slope=unit_slope, store=_store_dtype(), tap_chunk=tap_chunk,
+        vol, coefs, disp, shape, nearest, out_len=out_len, store=_store_dtype()
+    )
+
+
+@functools.partial(jax.jit, static_argnames=("shape", "nearest", "out_len", "store"))
+def _hat_pass_impl(vol, coefs, disp, shape, nearest, out_len=None, store=None):
+    D, H, W = shape
+    OW = W if out_len is None else out_len
+    x2d = vol.reshape(D * H, W).astype(store or jnp.float32)
+    pos = _pass_positions(coefs, disp, shape, OW)
+    return _hat_pass_jnp(x2d, pos, nearest).reshape(D, H, OW)
+
+
+def hat_pass_pair(va, vb, coefs, disp, shape, out_len=None, modes=(False, True)):
+    """One axis pass over TWO volumes sharing positions; per-operand mode
+    (False = linear, True = nearest). Default (linear, nearest) serves the
+    image+segmentation pair; (linear, linear) serves value+weight chains.
+    Reads the storage scope like :func:`hat_pass`."""
+    from .linops import _store_dtype
+
+    return _hat_pass_pair_impl(
+        va, vb, coefs, disp, shape, out_len=out_len, modes=tuple(modes),
+        store=_store_dtype(),
     )
 
 
 @functools.partial(
-    jax.jit,
-    static_argnames=(
-        "shape", "maxspan", "nearest", "out_len", "unit_slope", "store", "tap_chunk"
-    ),
+    jax.jit, static_argnames=("shape", "out_len", "modes", "store")
 )
-def _hat_pass_impl(
-    vol, coefs, disp, shape, maxspan, nearest, out_len=None, unit_slope=False,
-    store=None, tap_chunk=TAP_CHUNK,
-):
+def _hat_pass_pair_impl(va, vb, coefs, disp, shape, out_len=None, modes=(False, True), store=None):
     D, H, W = shape
     OW = W if out_len is None else out_len
-    R = D * H
-    io_dtype = store or jnp.float32
-    x2d = vol.reshape(R, W).astype(io_dtype)
-    per_slice = isinstance(coefs, jnp.ndarray) and getattr(coefs, "ndim", 1) == 2
-    coefs = (
-        coefs.astype(jnp.float32)
-        if per_slice
-        else jnp.stack([jnp.asarray(c, jnp.float32) for c in coefs])
-    )
-    lane_affine = disp is not None and disp.ndim == 2 and disp.shape[0] == 3
-    # Whole-row lane block for unit-slope passes, capped at OW <= 384.
-    # Root cause of the >= 512 exclusion (isolated round 5, numpy-replayed
-    # bounds): a wide block spans BOTH near-saturation valid elements at
-    # low lanes (rel -> -lane, reach ~= the deviation magnitude) AND
-    # positive-extreme elements — a genuine valid-rel spread of ~2x the
-    # deviation range. At scanner-scale deviations (|dz| up to ~60) that
-    # crosses the maxspan=128 tap budget exactly between OW=384 and
-    # OW=512, so >= 512 whole-row silently span-clamped valid elements
-    # (caught by tests_tpu/test_production_tiers.py's Mosaic-vs-fallback
-    # pins). 128-lane blocks keep each block's spread local; 384
-    # whole-row is pinned exact by the same tests.
-    lane_block = OW if (unit_slope and OW % 128 == 0 and OW <= WHOLE_ROW_MAX) else 128
-
-    if not _use_pallas() or not _v1_ok(R, W, OW, H, maxspan) or (
-        per_slice and H % BLOCK_ROWS != 0
-    ):
-        rows = jnp.arange(R, dtype=jnp.float32)
-        ri = jnp.floor(rows / H)
-        rj = rows - ri * H
-        lanes = jnp.arange(OW, dtype=jnp.float32)
-        c = jnp.repeat(coefs, H, axis=0) if per_slice else coefs[None, :]
-        pos = (
-            c[:, 0:1] * ri[:, None]
-            + c[:, 1:2] * rj[:, None]
-            + c[:, 2:3] * lanes[None, :]
-            + c[:, 3:4]
-        )
-        if lane_affine:
-            pos = pos + (
-                disp[0][None, :] * ri[:, None]
-                + disp[1][None, :] * rj[:, None]
-                + disp[2][None, :]
-            )
-        elif disp is not None:
-            pos = pos + disp.reshape(R, OW)
-        return _hat_pass_jnp(x2d, pos, nearest).reshape(D, H, OW)
-
-    with_disp = disp is not None
-    LB = lane_block
-    BR = _choose_block_rows(R, H)
-    _, width, _ = _win_geometry(W, LB)
-    kernel = functools.partial(
-        _hat_kernel,
-        S=W,
-        H_rows=H,
-        maxspan=max(maxspan, V1_MINSPAN),
-        nearest=nearest,
-        with_disp=with_disp,
-        lane_block=LB,
-        lane_affine=lane_affine,
-        io_dtype=io_dtype,
-        block_rows=BR,
-        tap_chunk=tap_chunk,
-    )
-    if lane_affine:
-        disp2d = disp.astype(jnp.float32)
-        disp_spec = pl.BlockSpec((3, LB), lambda r, h: (0, h), memory_space=pltpu.VMEM)
-    elif with_disp:
-        disp2d = disp.reshape(R, OW)
-        disp_spec = pl.BlockSpec((BR, LB), lambda r, h: (r, h), memory_space=pltpu.VMEM)
-    else:
-        disp2d = jnp.zeros((BR, LB), jnp.float32)
-        disp_spec = pl.BlockSpec((BR, LB), lambda r, h: (0, 0), memory_space=pltpu.VMEM)
-    nh = OW // LB
-    bounds = _block_bounds(
-        coefs, per_slice, disp2d if with_disp else None, lane_affine, R, OW, H, W,
-        LB, BR,
-    )
-    out = pl.pallas_call(
-        kernel,
-        out_shape=jax.ShapeDtypeStruct((R, OW), io_dtype),
-        grid=(R // BR, OW // LB),
-        in_specs=[
-            pl.BlockSpec(
-                (1, 1, 4),
-                (lambda r, h: (r // (H // BR), 0, 0))
-                if per_slice
-                else (lambda r, h: (0, 0, 0)),
-                memory_space=pltpu.SMEM,
-            ),
-            pl.BlockSpec((1, 1, 2), lambda r, h: (r * nh + h, 0, 0), memory_space=pltpu.SMEM),
-            pl.BlockSpec((BR, W), lambda r, h: (r, 0), memory_space=pltpu.VMEM),
-            disp_spec,
-        ],
-        out_specs=pl.BlockSpec((BR, LB), lambda r, h: (r, h), memory_space=pltpu.VMEM),
-        scratch_shapes=[
-            pltpu.VMEM((BR, LB), jnp.float32),
-            pltpu.VMEM((BR, width), jnp.float32),
-        ],
-        interpret=_INTERPRET,
-    )(coefs.reshape(-1, 1, 4), bounds, x2d, disp2d)
-    return out.reshape(D, H, OW)
-
-
-# Window-capacity invariant (see _win_geometry's proof): the offset-folded
-# tap loop's last chunk slices win[:, c : c + LB] with
-# c <= ceil((span + 128)/TAP_CHUNK)*TAP_CHUNK - 1, which must stay
-# <= WIN - LB = 256, i.e. span <= 128 independent of the lane block. Larger
-# spans would trace out-of-bounds window slices — route them to the jnp path.
-V1_MAXSPAN = 128
-
-
-def _choose_block_rows(R: int, H_rows: int) -> int:
-    """Rows per block for one hat pass.
-
-    64 measured best at 384^3-and-below shapes (the passes are TAP-bound
-    there: window spans grow with the row extent). At the big scanner tiers
-    the economics flip: a (cube^2 rows x cube lanes) pass at 640 runs 32k
-    grid steps whose per-step fixed cost (~1.5 us: grid iteration + block
-    DMA latency) dominates the tap math — profiler-measured 50 ms for the
-    z-extract deviation hat, ~25% of an all-640 stream batch. 128 rows
-    halves the step count; within-block spread grows by ~slope*64 extra
-    rows, well inside one extra tap chunk for the scanner's small-tilt
-    passes. Output is bit-identical (<= 2 nonzero taps per element,
-    accumulated in ascending tap order regardless of block geometry).
-    """
-    if R >= 262144 and R % 128 == 0 and H_rows % 128 == 0:
-        return 128
-    return BLOCK_ROWS
-
-
-def _v1_ok(R, W, OW, H_rows, maxspan=0):
-    return (
-        R % BLOCK_ROWS == 0
-        and W % 128 == 0
-        and OW % 128 == 0
-        and H_rows % BLOCK_ROWS == 0
-        and max(maxspan, V1_MINSPAN) <= V1_MAXSPAN
-    )
+    dt = store or jnp.float32
+    pos = _pass_positions(coefs, disp, shape, OW)
+    a = _hat_pass_jnp(va.reshape(D * H, W).astype(dt), pos, modes[0])
+    b = _hat_pass_jnp(vb.reshape(D * H, W).astype(dt), pos, modes[1])
+    return a.reshape(D, H, OW), b.reshape(D, H, OW)
 
 
 # ---------------------------------------------------------------------------
@@ -610,71 +163,46 @@ def ul_decompose(A: jnp.ndarray):
     return U, L
 
 
-# Static pass windows: within-block position span bounds for the supported
-# deformation ranges (rot<=20deg per axis, shear<=0.02, scale in [0.9, 1.1];
-# empirical corner sweep gives |L offdiag| <= 0.53, |U offdiag| <= 0.55,
-# |U diag - 1| <= 0.4). Within a block only row_j and the lane extent swing
-# the position — row_i is constant (blocks never straddle slices). Budgets
-# are sized for up-to-128-row blocks (row_j <= 127; lane terms apply only
-# to non-unit-slope passes, which use 128-lane blocks), so BLOCK_ROWS can be
-# raised without revisiting them; at the shipped 64-row blocks actual worst
-# cases are ~half:
-#   U passes:  |diag-1|*127 (lanes) + |offdiag|*127 (rows) + 4   (~125)
-#   L passes:  unit lane slope; |L offdiag|*127 + 4              (~71)
-#   field:     unit lane slope + 2*FIELD_LIM + |L|*127 + 4       (~99)
-# Span overflow (exotic configs) degrades to a clamped tap, not zeros; the
-# adaptive span_dyn chunks skip what a block doesn't need, so the generous
-# static bounds cost little at runtime.
-MAXSPAN_U = 128
-MAXSPAN_L = 72
-MAXSPAN_FIELD = 104
 # Displacement fields are clipped to +-FIELD_LIM voxels: ~3.5 sigma of the
 # largest default nonlin_std (4.0) — beyond the field's realizable range.
 FIELD_LIM = 14.0
-# Minimum static tap count: the adaptive span_dyn chunks skip what a given
-# block doesn't need, so a generous static bound costs little at runtime.
-V1_MINSPAN = 48
 
 
-def warp_affine_separable(vol, A, t, nearest=False, out_shape=None, maxspan=None):
+def warp_affine_separable(vol, A, t, nearest=False, out_shape=None):
     """``out[o] = V[A o + t]`` via five triangular hat passes (exact positions).
 
     Pass order (layouts in parentheses, gathered axis last):
       U-z (i,j,k) -> U-y (i,k,j) -> U-x (j,k,i) -> L-y (i,k,j) -> L-z (i,j,k).
 
     ``out_shape`` optionally differs from ``vol.shape`` (the output grid the
-    map is evaluated on). ``maxspan`` widens the pass window for maps whose
-    slopes deviate further from 1 than the deformation-config bounds.
+    map is evaluated on).
     """
     D, H, W = vol.shape
     OD, OH, OW = out_shape if out_shape is not None else (D, H, W)
-    ms_u = maxspan or MAXSPAN_U
-    ms_l = maxspan or MAXSPAN_L
     U, L = ul_decompose(A)
     t = jnp.asarray(t, jnp.float32)
     dt = vol.dtype
     v = vol.astype(jnp.float32)
 
     # U-stage: W1(p) = V[U p + t]  (shapes grow to the output grid axis-wise)
-    x = hat_pass(v, (0.0, 0.0, U[2, 2], t[2]), None, (D, H, W), ms_u, nearest, out_len=OW)
+    x = hat_pass(v, (0.0, 0.0, U[2, 2], t[2]), None, (D, H, W), nearest, out_len=OW)
     x = jnp.transpose(x, (0, 2, 1))  # (i, k', j)
-    x = hat_pass(x, (0.0, U[1, 2], U[1, 1], t[1]), None, (D, OW, H), ms_u, nearest, out_len=OH)
+    x = hat_pass(x, (0.0, U[1, 2], U[1, 1], t[1]), None, (D, OW, H), nearest, out_len=OH)
     x = jnp.transpose(x, (2, 1, 0))  # (j', k', i)
-    x = hat_pass(x, (U[0, 1], U[0, 2], U[0, 0], t[0]), None, (OH, OW, D), ms_u, nearest, out_len=OD)
+    x = hat_pass(x, (U[0, 1], U[0, 2], U[0, 0], t[0]), None, (OH, OW, D), nearest, out_len=OD)
 
     # L-stage: out(o) = W1[L o]
     x = jnp.transpose(x, (2, 1, 0))  # (i', k', j')
-    x = hat_pass(x, (L[1, 0], 0.0, 1.0, 0.0), None, (OD, OW, OH), ms_l, nearest)
+    x = hat_pass(x, (L[1, 0], 0.0, 1.0, 0.0), None, (OD, OW, OH), nearest)
     x = jnp.transpose(x, (0, 2, 1))  # (i', j', k')
-    x = hat_pass(x, (L[2, 0], L[2, 1], 1.0, 0.0), None, (OD, OH, OW), ms_l, nearest)
+    x = hat_pass(x, (L[2, 0], L[2, 1], 1.0, 0.0), None, (OD, OH, OW), nearest)
     return x.astype(dt)
 
 
 def warp_displacement_separable(vol, dx, dy, dz, nearest=False):
     """``out[o] = V[o + d(o)]`` for small smooth displacements (3 hat passes).
 
-    Displacements are clipped to the pass window (+-22 voxels; ~5.5x the
-    default ``nonlin_std_max`` — beyond the field's realizable range).
+    Displacements are clipped to +-FIELD_LIM voxels.
     """
     D, H, W = vol.shape
     dt = vol.dtype
@@ -683,14 +211,14 @@ def warp_displacement_separable(vol, dx, dy, dz, nearest=False):
     dy = jnp.clip(dy, -lim, lim)
     dz = jnp.clip(dz, -lim, lim)
     x = vol.astype(jnp.float32)
-    x = hat_pass(x, (0.0, 0.0, 1.0, 0.0), dz, (D, H, W), MAXSPAN_FIELD, nearest)
+    x = hat_pass(x, (0.0, 0.0, 1.0, 0.0), dz, (D, H, W), nearest)
     x = jnp.transpose(x, (0, 2, 1))
     x = hat_pass(
-        x, (0.0, 0.0, 1.0, 0.0), jnp.transpose(dy, (0, 2, 1)), (D, W, H), MAXSPAN_FIELD, nearest
+        x, (0.0, 0.0, 1.0, 0.0), jnp.transpose(dy, (0, 2, 1)), (D, W, H), nearest
     )
-    x = jnp.transpose(x, (2, 1, 0))  # (j, k, i) wait: (i,k,j)->(j,k,i)
+    x = jnp.transpose(x, (2, 1, 0))  # (i, k, j) -> (j, k, i)
     x = hat_pass(
-        x, (0.0, 0.0, 1.0, 0.0), jnp.transpose(dx, (1, 2, 0)), (H, W, D), MAXSPAN_FIELD, nearest
+        x, (0.0, 0.0, 1.0, 0.0), jnp.transpose(dx, (1, 2, 0)), (H, W, D), nearest
     )
     return jnp.transpose(x, (2, 0, 1)).astype(dt)
 
@@ -828,11 +356,6 @@ def decompose_affine_paeth_host(A, t, cube):
     return idx, angles.astype(np.float32), np.float32(s), delta.astype(np.float32)
 
 
-# shear-pass windows (v1 32-row blocks): |amount| <= 1 (Paeth shears of
-# residual rotations up to ~90 deg) over 31 rows + hat support
-MAXSPAN_SHEAR = 40
-
-
 def _shear_matrices(J, K, S, amount, bias, c_fix, modes, slope=1.0):
     """(J, K, S) banded per-row resampling operators
     ``M[j,k,s] = hat(pos(j,k) - s)``, ``pos = slope*k + amount*(j - c_fix) +
@@ -853,9 +376,9 @@ def _shear_matrices(J, K, S, amount, bias, c_fix, modes, slope=1.0):
 
 def _row_affine_matmul_pair(xa, xb, slope, amount, bias, modes, out_len=None, out_order="ijk"):
     """Resample the LAST axis of a pair at ``pos = slope*k + amount*row_j +
-    bias`` (row_j = raw middle-axis index) via a batched MXU matmul —
+    bias`` (row_j = raw middle-axis index) via a batched matmul —
     identical semantics to a ``hat_pass_pair`` whose position map has no
-    displacement and no row_i term, at ~10x lower cost.
+    displacement and no row_i term.
 
     x layouts: (I, J, S) -> axes (i, j, k=resampled) emitted in
     ``out_order`` — a permutation string over "ijk"; a non-default order
@@ -884,8 +407,8 @@ def _row_affine_matmul_pair(xa, xb, slope, amount, bias, modes, out_len=None, ou
 
 
 def _shear_pass_pair_mm(va, vb, axis_move, axis_fix, amount, bias, modes, store=None):
-    """Pair shear as a BATCHED MXU MATMUL (one (K,S) operator per axis_fix
-    row, shared by both operands): ~10x cheaper than a hat pass at 384^3.
+    """Pair shear as a batched matmul (one (K,S) operator per axis_fix
+    row, shared by both operands).
 
     pos[axis_move] = idx + amount * centered(axis_fix) + bias.
     ``vb=None`` runs the single-operand form (returns (oa, None)).
@@ -948,8 +471,7 @@ def _warp_rigid_pair_impl(
 
     Pipeline: quarter-turn ``lax.switch`` -> per-axis Paeth shear trios
     (quarter alignment bounds every residual Euler angle well below 90 deg,
-    so one trio per axis suffices) -> final separable zoom/shift matmuls
-    (MXU).
+    so one trio per axis suffices) -> final separable zoom/shift matmuls.
 
     ``post_a``/``post_b``: optional per-axis operator matrices (each
     (out_dim, out_dim) or None) applied to the corresponding operand IN THE
@@ -1093,8 +615,12 @@ def _warp_rigid_zoom_first_impl(
         R = R.at[u_ax, v_ax].set(-s).at[v_ax, u_ax].set(s)
         return R
 
-    R_res = rot_axis(0, angles[0]) @ rot_axis(1, angles[1]) @ rot_axis(2, angles[2])
-    d = R_res @ (delta - c_in + scale * c_out) + c_in - scale * c_out
+    hi = jax.lax.Precision.HIGHEST  # f32 3x3 products, never TF32
+    R_res = jnp.matmul(
+        jnp.matmul(rot_axis(0, angles[0]), rot_axis(1, angles[1]), precision=hi),
+        rot_axis(2, angles[2]), precision=hi,
+    )
+    d = jnp.matmul(R_res, delta - c_in + scale * c_out, precision=hi) + c_in - scale * c_out
 
     # zoom: Z[p] = quarter(V)[scale * p + d], three per-axis matmuls from the
     # input cube onto the S-sized output frame
@@ -1132,34 +658,6 @@ def _warp_rigid_zoom_first_impl(
     return a
 
 
-def warp_affine_separable_pair(
-    va, vb, A, t, modes=(False, False), out_shape=None, maxspan=None
-):
-    """Pair version of :func:`warp_affine_separable`: five shared UL passes
-    over two volumes with per-operand interpolation modes."""
-    D, H, W = va.shape
-    OD, OH, OW = out_shape if out_shape is not None else (D, H, W)
-    ms = maxspan or MAXSPAN_U
-    U, L = ul_decompose(A)
-    t = jnp.asarray(t, jnp.float32)
-    a = va.astype(jnp.float32)
-    b = vb.astype(jnp.float32)
-
-    def tp(x, p):
-        return jnp.transpose(x, p)
-
-    a, b = hat_pass_pair(a, b, (0.0, 0.0, U[2, 2], t[2]), None, (D, H, W), ms, out_len=OW, modes=modes)
-    a, b = tp(a, (0, 2, 1)), tp(b, (0, 2, 1))
-    a, b = hat_pass_pair(a, b, (0.0, U[1, 2], U[1, 1], t[1]), None, (D, OW, H), ms, out_len=OH, modes=modes)
-    a, b = tp(a, (2, 1, 0)), tp(b, (2, 1, 0))
-    a, b = hat_pass_pair(a, b, (U[0, 1], U[0, 2], U[0, 0], t[0]), None, (OH, OW, D), ms, out_len=OD, modes=modes)
-    a, b = tp(a, (2, 1, 0)), tp(b, (2, 1, 0))
-    a, b = hat_pass_pair(a, b, (L[1, 0], 0.0, 1.0, 0.0), None, (OD, OW, OH), ms, modes=modes)
-    a, b = tp(a, (0, 2, 1)), tp(b, (0, 2, 1))
-    a, b = hat_pass_pair(a, b, (L[2, 0], L[2, 1], 1.0, 0.0), None, (OD, OH, OW), ms, modes=modes)
-    return a, b
-
-
 def warp_affine_field_separable(vol, A, t, Fx, Fy, Fz, nearest=False):
     """Fused affine + displacement warp: ``out[o] = V[A (o + F(o)) + t']``.
 
@@ -1182,276 +680,27 @@ def warp_affine_field_separable(vol, A, t, Fx, Fy, Fz, nearest=False):
     gz = jnp.clip(L[2, 0] * Fx + L[2, 1] * Fy + Fz, -lim, lim)
 
     # U-stage: W1(p) = V[U p + t]
-    x = hat_pass(v, (0.0, 0.0, U[2, 2], t[2]), None, (D, H, W), MAXSPAN_U, nearest)
+    x = hat_pass(v, (0.0, 0.0, U[2, 2], t[2]), None, (D, H, W), nearest)
     x = jnp.transpose(x, (0, 2, 1))  # (i, k, j)
-    x = hat_pass(x, (0.0, U[1, 2], U[1, 1], t[1]), None, (D, W, H), MAXSPAN_U, nearest)
+    x = hat_pass(x, (0.0, U[1, 2], U[1, 1], t[1]), None, (D, W, H), nearest)
     x = jnp.transpose(x, (2, 1, 0))  # (j, k, i)
-    x = hat_pass(x, (U[0, 1], U[0, 2], U[0, 0], t[0]), None, (H, W, D), MAXSPAN_U, nearest)
+    x = hat_pass(x, (U[0, 1], U[0, 2], U[0, 0], t[0]), None, (H, W, D), nearest)
 
     # L-stage with displacement: out(o) = W1[L o + g(o)]
     # y-pass (lanes j): pos = l10 i + j + gy
     x = jnp.transpose(x, (2, 1, 0))  # (i, k, j)
     x = hat_pass(
-        x, (L[1, 0], 0.0, 1.0, 0.0), jnp.transpose(gy, (0, 2, 1)), (D, W, H), MAXSPAN_FIELD, nearest
+        x, (L[1, 0], 0.0, 1.0, 0.0), jnp.transpose(gy, (0, 2, 1)), (D, W, H), nearest
     )
     # z-pass (lanes k): pos = l20 i + l21 j + k + gz
     x = jnp.transpose(x, (0, 2, 1))  # (i, j, k)
-    x = hat_pass(x, (L[2, 0], L[2, 1], 1.0, 0.0), gz, (D, H, W), MAXSPAN_FIELD, nearest)
+    x = hat_pass(x, (L[2, 0], L[2, 1], 1.0, 0.0), gz, (D, H, W), nearest)
     # x-pass (lanes i): pos = i + gx
     x = jnp.transpose(x, (1, 2, 0))  # (j, k, i)
     x = hat_pass(
-        x, (0.0, 0.0, 1.0, 0.0), jnp.transpose(gx, (1, 2, 0)), (H, W, D), MAXSPAN_FIELD, nearest
+        x, (0.0, 0.0, 1.0, 0.0), jnp.transpose(gx, (1, 2, 0)), (H, W, D), nearest
     )
     return jnp.transpose(x, (2, 0, 1)).astype(dt)
-
-
-# ---------------------------------------------------------------------------
-# Paired pass: warp two volumes (linear + nearest) through one kernel
-# ---------------------------------------------------------------------------
-#
-# The generator always warps the image (linear) and the segmentation
-# (nearest) with IDENTICAL sample positions. A paired kernel shares the
-# window staging, position math, and block overheads — the dominant per-pass
-# fixed costs — between the two operands.
-
-def _hat_pair_kernel(
-    coef_ref, b_ref, xa_ref, xb_ref, disp_ref, oa_ref, ob_ref, acc_a_ref, acc_b_ref,
-    sa_ref, sb_ref,
-    *, S, H_rows, maxspan, with_disp, modes=(False, True), lane_block=128,
-    lane_affine=False,
-    io_dtype=jnp.float32, block_rows=BLOCK_ROWS, tap_chunk=TAP_CHUNK,
-):
-    r_blk = pl.program_id(0)
-    h_blk = pl.program_id(1)
-    ci, cj, ck, bias = (coef_ref[0, 0, i] for i in range(4))
-
-    B = block_rows
-    LB = lane_block
-    pad, width, WIN = _win_geometry(S, LB)
-
-    # Stage edge-padded source rows into VMEM scratch once per row block
-    # (the lane grid dim iterates fastest, so h_blk == 0 runs first for each
-    # r_blk and the scratch persists across the row block's lane steps).
-    # This replaces an HBM-materialized padded copy — one whole padded-width
-    # array write + read per operand per pass — with raw S-wide block reads.
-    @pl.when(h_blk == 0)
-    def _stage():
-        for x_ref, s_ref in ((xa_ref, sa_ref), (xb_ref, sb_ref)):
-            xf = x_ref[:].astype(jnp.float32)  # HBM may be bf16; windows f32
-            s_ref[:, pad : pad + S] = xf
-            s_ref[:, :pad] = jnp.broadcast_to(xf[:, :1], (B, pad))
-            s_ref[:, pad + S :] = jnp.broadcast_to(xf[:, S - 1 : S], (B, width - pad - S))
-
-    rows = r_blk * B + jax.lax.broadcasted_iota(jnp.int32, (B, LB), 0)
-    row_i = (rows // H_rows).astype(jnp.float32)
-    row_j = (rows % H_rows).astype(jnp.float32)
-    lanes_f = (h_blk * LB + jax.lax.broadcasted_iota(jnp.int32, (B, LB), 1)).astype(jnp.float32)
-
-    pos = ci * row_i + cj * row_j + ck * lanes_f + bias
-    if with_disp:
-        if lane_affine:
-            # disp_ref is a (3, LB) per-lane affine table:
-            # disp = A0[lane]*row_i + A1[lane]*row_j + A2[lane] — computed
-            # in-register instead of reading a materialized volume
-            lt = disp_ref[:]
-            pos = pos + lt[0, :][None, :] * row_i + lt[1, :][None, :] * row_j + lt[2, :][None, :]
-        else:
-            pos = pos + disp_ref[:]
-
-    sat_lo = pos <= 0.0
-    sat_hi = pos >= S - 1.0
-    rel = pos - lanes_f
-    # per-block bounds precomputed on XLA (see _hat_kernel's b_ref note)
-    n0 = jnp.floor(b_ref[0, 0, 0]).astype(jnp.int32)
-    # Never binding for blocks holding an included element (_win_geometry).
-    n0 = jnp.clip(n0, -(pad + h_blk * LB), S - 1 - h_blk * LB)
-
-    # window at the 128-ALIGNED base; the sub-128 remainder ``off`` is folded
-    # into the tap index (see _hat_kernel) — no roll ladder
-    base = pad + h_blk * LB + n0
-    q = base // 128
-    off = base - q * 128
-    wa = sa_ref[:, pl.ds(pl.multiple_of(q * 128, 128), WIN)]
-    wb = sb_ref[:, pl.ds(pl.multiple_of(q * 128, 128), WIN)]
-
-    off_f = off.astype(jnp.float32)
-    d0 = jnp.clip(rel - n0.astype(jnp.float32), 0.0, maxspan - 1.0) + off_f
-    ri_rel = jnp.clip(
-        jnp.round(pos) - lanes_f - n0.astype(jnp.float32), 0.0, maxspan - 1.0
-    ) + off_f
-    # Chunked tap loop gated to [off, off + span_dyn) (see _hat_kernel's
-    # span_dyn note) — bit-identical, adaptively cheaper.
-    span_dyn = jnp.floor(b_ref[0, 0, 1]).astype(jnp.int32) - n0 + 2
-    lo_c = off
-    hi_c = off + jnp.minimum(span_dyn, maxspan)
-    acc_a_ref[:] = jnp.zeros((B, LB), jnp.float32)
-    acc_b_ref[:] = jnp.zeros((B, LB), jnp.float32)
-    for c0 in range(0, maxspan + 128, tap_chunk):
-
-        @pl.when(jnp.logical_and(c0 < hi_c, c0 + tap_chunk > lo_c))
-        def _chunk(c0=c0):
-            acc_a = acc_a_ref[:]
-            acc_b = acc_b_ref[:]
-            for m in range(c0, c0 + tap_chunk):
-                wgt = jnp.maximum(0.0, 1.0 - jnp.abs(d0 - float(m)))
-                nsel = ri_rel == float(m)
-                if modes[0]:
-                    acc_a = jnp.where(nsel, wa[:, m : m + LB], acc_a)
-                else:
-                    acc_a = acc_a + wgt * wa[:, m : m + LB]
-                if modes[1]:
-                    acc_b = jnp.where(nsel, wb[:, m : m + LB], acc_b)
-                else:
-                    acc_b = acc_b + wgt * wb[:, m : m + LB]
-            acc_a_ref[:] = acc_a
-            acc_b_ref[:] = acc_b
-
-    acc_a = acc_a_ref[:]
-    acc_b = acc_b_ref[:]
-
-    # edge values from the f32 scratches (see _hat_kernel note)
-    oa_ref[:] = jnp.where(
-        sat_lo,
-        sa_ref[:, pad : pad + 1],
-        jnp.where(sat_hi, sa_ref[:, pad + S - 1 : pad + S], acc_a),
-    ).astype(io_dtype)
-    ob_ref[:] = jnp.where(
-        sat_lo,
-        sb_ref[:, pad : pad + 1],
-        jnp.where(sat_hi, sb_ref[:, pad + S - 1 : pad + S], acc_b),
-    ).astype(io_dtype)
-
-
-def hat_pass_pair(
-    va, vb, coefs, disp, shape, maxspan, out_len=None, modes=(False, True),
-    unit_slope=False, tap_chunk=TAP_CHUNK,
-):
-    """See :func:`_hat_pass_pair_impl`; this wrapper reads the storage scope
-    at caller trace time and threads it as a static arg."""
-    from .linops import _store_dtype
-
-    return _hat_pass_pair_impl(
-        va, vb, coefs, disp, shape, maxspan, out_len=out_len, modes=modes,
-        unit_slope=unit_slope, store=_store_dtype(), tap_chunk=tap_chunk,
-    )
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=(
-        "shape", "maxspan", "out_len", "modes", "unit_slope", "store", "tap_chunk"
-    ),
-)
-def _hat_pass_pair_impl(
-    va, vb, coefs, disp, shape, maxspan, out_len=None, modes=(False, True),
-    unit_slope=False, store=None, tap_chunk=TAP_CHUNK,
-):
-    """One axis pass over TWO volumes sharing positions; per-operand mode
-    (False = linear, True = nearest). Default (linear, nearest) serves the
-    image+segmentation pair; (linear, linear) serves value+weight chains.
-
-    ``unit_slope=True`` declares (statically) that the lane coefficient is
-    1.0, so the within-block position spread is lane-count independent and
-    the kernel can cover the whole output row in ONE wide lane block —
-    fewer grid steps, one window-staging roll ladder instead of OW/128.
-    Bit-identical output (tap weights are invariant to the window base).
-
-    ``coefs`` may also be a PER-SLICE (D, 4) table: block r of rows reads
-    row ``r*BLOCK_ROWS//H`` of the table (blocks never straddle slices —
-    ``H % BLOCK_ROWS == 0``). A per-slice AFFINE position map (the
-    scanner's dv/du deviations) then needs NO materialized displacement
-    volume at all — the kernel body is unchanged, only the coefficient
-    BlockSpec index_map differs."""
-    D, H, W = shape
-    OW = W if out_len is None else out_len
-    R = D * H
-    io_dtype = store or jnp.float32
-    per_slice = isinstance(coefs, jnp.ndarray) and getattr(coefs, "ndim", 1) == 2
-    coefs_arr = (
-        coefs.astype(jnp.float32)
-        if per_slice
-        else jnp.stack([jnp.asarray(c, jnp.float32) for c in coefs])
-    )
-    # whole-row lane block for unit-slope passes (<= 384; see _hat_pass_impl
-    # on why 512/640 are excluded)
-    lane_block = OW if (unit_slope and OW % 128 == 0 and OW <= WHOLE_ROW_MAX) else 128
-
-    if not _use_pallas() or not _v1_ok(R, W, OW, H, maxspan) or (
-        per_slice and H % BLOCK_ROWS != 0
-    ):
-        a = _hat_pass_impl(va, coefs, disp, shape, maxspan, modes[0], out_len=out_len, store=store)
-        b = _hat_pass_impl(vb, coefs, disp, shape, maxspan, modes[1], out_len=out_len, store=store)
-        return a, b
-
-    xa = va.reshape(R, W).astype(io_dtype)
-    xb = vb.reshape(R, W).astype(io_dtype)
-    with_disp = disp is not None
-    lane_affine = with_disp and disp.ndim == 2 and disp.shape[0] == 3
-    LB = lane_block
-    BR = _choose_block_rows(R, H)
-    _, width, _ = _win_geometry(W, LB)
-    kernel = functools.partial(
-        _hat_pair_kernel,
-        S=W,
-        H_rows=H,
-        maxspan=max(maxspan, V1_MINSPAN),
-        with_disp=with_disp,
-        modes=tuple(modes),
-        lane_block=LB,
-        lane_affine=lane_affine,
-        io_dtype=io_dtype,
-        block_rows=BR,
-        tap_chunk=tap_chunk,
-    )
-    if lane_affine:
-        disp2d = disp.astype(jnp.float32)
-        disp_spec = pl.BlockSpec((3, LB), lambda r, h: (0, h), memory_space=pltpu.VMEM)
-    elif with_disp:
-        disp2d = disp.reshape(R, OW)
-        disp_spec = pl.BlockSpec((BR, LB), lambda r, h: (r, h), memory_space=pltpu.VMEM)
-    else:
-        disp2d = jnp.zeros((BR, LB), jnp.float32)
-        disp_spec = pl.BlockSpec((BR, LB), lambda r, h: (0, 0), memory_space=pltpu.VMEM)
-    raw = pl.BlockSpec((BR, W), lambda r, h: (r, 0), memory_space=pltpu.VMEM)
-    out_spec = pl.BlockSpec((BR, LB), lambda r, h: (r, h), memory_space=pltpu.VMEM)
-    rows_per_slice = H // BR
-    # (N, 1, 4) table + (1, 1, 4) block: trailing block dims equal the array
-    # dims, satisfying Mosaic's tiling rule (a (1, 4) block over (N, 4) does
-    # not lower on real hardware when N > 1).
-    coef_spec = (
-        pl.BlockSpec((1, 1, 4), lambda r, h: (r // rows_per_slice, 0, 0), memory_space=pltpu.SMEM)
-        if per_slice
-        else pl.BlockSpec((1, 1, 4), lambda r, h: (0, 0, 0), memory_space=pltpu.SMEM)
-    )
-    nh = OW // LB
-    bounds = _block_bounds(
-        coefs_arr, per_slice, disp2d if with_disp else None, lane_affine, R, OW, H,
-        W, LB, BR,
-    )
-    oa, ob = pl.pallas_call(
-        kernel,
-        out_shape=(
-            jax.ShapeDtypeStruct((R, OW), io_dtype),
-            jax.ShapeDtypeStruct((R, OW), io_dtype),
-        ),
-        grid=(R // BR, OW // LB),
-        in_specs=[
-            coef_spec,
-            pl.BlockSpec((1, 1, 2), lambda r, h: (r * nh + h, 0, 0), memory_space=pltpu.SMEM),
-            raw,
-            raw,
-            disp_spec,
-        ],
-        out_specs=(out_spec, out_spec),
-        scratch_shapes=[
-            pltpu.VMEM((BR, LB), jnp.float32),
-            pltpu.VMEM((BR, LB), jnp.float32),
-            pltpu.VMEM((BR, width), jnp.float32),
-            pltpu.VMEM((BR, width), jnp.float32),
-        ],
-        interpret=_INTERPRET,
-    )(coefs_arr.reshape(-1, 1, 4), bounds, xa, xb, disp2d)
-    return oa.reshape(D, H, OW), ob.reshape(D, H, OW)
 
 
 def warp_affine_field_pair(va, vb, A, t, Fx, Fy, Fz):
@@ -1484,23 +733,18 @@ def warp_affine_field_pair_pre(va, vb, A, t, gyT, gz, gxT):
     - ``gxT`` = clip(Fx, ...) in (H, W, D) layout,
 
     with L from :func:`ul_decompose`. The U-z and U-y passes carry no
-    displacement and no row_i term, so they run as (batched) MXU matmuls;
-    the three displacement-carrying L passes use the hat kernel.
+    displacement and no row_i term, so they run as batched matmuls; the
+    three displacement-carrying L passes are hat passes.
 
-    The L-z pass's ``L21*j`` row term is peeled into its own row-affine MXU
+    The L-z pass's ``L21*j`` row term is peeled into its own row-affine
     matmul (``Y[i,j,k] = X[i,j,k + L21*j]`` then the hat pass samples
-    ``Y[i, j, L20*i + k + gz]`` — positions compose exactly). Within a hat
-    block ``row_i`` is constant, so after the peel every hat pass's in-block
-    position spread is the FIELD swing alone: measured 3.15 -> ~2.2 ms/vol
-    on the L-z pass at 256^3 (the L21 term added up to |L21|*63 taps/block).
-    Cost: one extra linear interpolation along k for the linear operand —
-    the same sheared-kernel error class as the U-x split below. The nearest
-    (label) operand likewise gains a chained rounding step:
+    ``Y[i, j, L20*i + k + gz]`` — positions compose exactly). Cost: one
+    extra linear interpolation along k for the linear operand — the same
+    sheared-kernel error class as the U-x split below. The nearest (label)
+    operand likewise gains a chained rounding step:
     ``round(round(k + L21*j) + ...)`` instead of one round of the composed
     position, which can shift a label by one voxel near half-integer
-    positions. The field passes also run a finer
-    tap-chunk (4): their adaptive spans are short, so half-empty 8-chunks
-    wasted ~10% of the pass.
+    positions.
     """
     D, H, W = va.shape
     U, L = ul_decompose(A)
@@ -1521,26 +765,17 @@ def warp_affine_field_pair_pre(va, vb, A, t, gyT, gz, gxT):
     # U-x: pos_i = U00*i + U01*j + U02*k + t0 has TWO row terms — split into
     # two single-row-term batched matmuls (i <- i + U02*k, then
     # i <- U00*i + U01*j + t0; compositions compose along the lane axis), so
-    # the whole U stage rides the MXU and only the three displacement passes
-    # below need the hat kernel. Extra cost: one more interpolation along i
+    # the whole U stage is matmuls and only the three displacement passes
+    # below are hat passes. Extra cost: one more interpolation along i
     # (same sheared-kernel error class the Paeth trios accept).
     a, b = _row_affine_matmul_pair(a, b, 1.0, U[0, 2], 0.0, modes, out_order="jik")  # (j,k,i), row k
     a, b = _row_affine_matmul_pair(a, b, U[0, 0], U[0, 1], t[0], modes, out_order="kij")  # (k,j,i), row j
-    a, b = hat_pass_pair(
-        a, b, (L[1, 0], 0.0, 1.0, 0.0), gyT, (D, W, H),
-        MAXSPAN_FIELD, unit_slope=True, tap_chunk=FIELD_TAP_CHUNK,
-    )
+    a, b = hat_pass_pair(a, b, (L[1, 0], 0.0, 1.0, 0.0), gyT, (D, W, H))
     a, b = tp(a, (0, 2, 1)), tp(b, (0, 2, 1))
-    # L-z peel: k <- k + L21*j on the MXU, then the hat pass carries only
-    # the block-constant L20*i term + the field
+    # L-z peel: k <- k + L21*j as a matmul, then the hat pass carries only
+    # the L20*i term + the field
     a, b = _row_affine_matmul_pair(a, b, 1.0, L[2, 1], 0.0, modes, out_order="ijk")
-    a, b = hat_pass_pair(
-        a, b, (L[2, 0], 0.0, 1.0, 0.0), gz, (D, H, W), MAXSPAN_FIELD,
-        unit_slope=True, tap_chunk=FIELD_TAP_CHUNK,
-    )
+    a, b = hat_pass_pair(a, b, (L[2, 0], 0.0, 1.0, 0.0), gz, (D, H, W))
     a, b = tp(a, (1, 2, 0)), tp(b, (1, 2, 0))
-    a, b = hat_pass_pair(
-        a, b, (0.0, 0.0, 1.0, 0.0), gxT, (H, W, D),
-        MAXSPAN_FIELD, unit_slope=True, tap_chunk=FIELD_TAP_CHUNK,
-    )
+    a, b = hat_pass_pair(a, b, (0.0, 0.0, 1.0, 0.0), gxT, (H, W, D))
     return jnp.transpose(a, (2, 0, 1)), jnp.transpose(b, (2, 0, 1)).astype(vb.dtype)

@@ -1,10 +1,10 @@
-"""Device mesh + batch sharding for pod-scale generation.
+"""Device mesh + batch sharding for multi-device generation.
 
 The reference scales by forking CPU ``DataLoader`` workers around a single
-CUDA device (``test_dl.py:17-23``). The TPU-native equivalent (SURVEY §2):
-generation is embarrassingly parallel per volume, so the batch axis is
-``vmap``-ed and sharded across chips over ICI with ``jax.sharding`` — no
-collectives inside the generator itself.
+CUDA device (``test_dl.py:17-23``). Here (SURVEY §2) generation is
+embarrassingly parallel per volume, so the batch axis is ``vmap``-ed and
+sharded across devices with ``jax.sharding`` — no collectives inside the
+generator itself.
 """
 
 from __future__ import annotations
@@ -28,9 +28,9 @@ def make_sharded_generator(mesh: Mesh, cfg: GeneratorCfg, axis: str = "data"):
     """Build a jitted batch generator sharded over ``mesh``.
 
     Returns ``gen(keys, seeds, segs) -> (images, labels)`` where all inputs
-    carry a leading batch axis sharded across ``axis``. Each chip generates
-    its local shard independently (ICI traffic: none — the ideal layout for
-    an input pipeline feeding a data-parallel trainer).
+    carry a leading batch axis sharded across ``axis``. Each device
+    generates its local shard independently (no cross-device traffic — the
+    ideal layout for an input pipeline feeding a data-parallel trainer).
     """
     batch_sharding = NamedSharding(mesh, P(axis))
 
@@ -64,16 +64,16 @@ def make_sharded_artifact_generator(
     small_cube: int | None = None,
     axis: str = "data",
 ):
-    """Sharded generation INCLUDING the SR-artifact chain (pod-scale stream).
+    """Sharded generation INCLUDING the SR-artifact chain.
 
     ``make_sharded_generator`` covers the artifact-free core; this builds the
     full production program — synth core (bf16 production mode) + the traced
     quality/motion chain of ``generator.artifacts`` — as a ``shard_map`` over
-    ``mesh``: each chip runs a LOCAL ``lax.map`` over its own batch shard
-    (one sample's scanner buffers live at a time per chip), with zero
-    cross-chip traffic. A global ``lax.map`` under plain sharded jit would
+    ``mesh``: each device runs a LOCAL ``lax.map`` over its own batch shard
+    (one sample's scanner buffers live at a time per device), with zero
+    cross-device traffic. A global ``lax.map`` under plain sharded jit would
     serialize the whole batch across the mesh; the shard_map form keeps the
-    per-chip sequential structure the single-chip stream uses.
+    per-device sequential structure the single-device stream uses.
 
     Returns ``gen(keys, seeds, segs, pack) -> (images, labels)``; all inputs
     carry a leading batch axis sharded over ``axis`` (``pack`` rows from

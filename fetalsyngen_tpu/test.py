@@ -26,8 +26,11 @@ def main():
     ap.add_argument("--count", type=int, default=100)
     args = ap.parse_args()
 
+    from fetalsyngen_tpu.compile_cache import enable_compile_cache
     from fetalsyngen_tpu.config import instantiate, load_yaml, resolve_interpolations
     from fetalsyngen_tpu.io import nifti
+
+    enable_compile_cache()
 
     cfg = resolve_interpolations(load_yaml(args.config))
     cfg = cfg.get("dataset", cfg)

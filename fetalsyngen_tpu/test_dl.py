@@ -1,6 +1,6 @@
 """Throughput smoke script (reference ``fetalsyngen/test_dl.py``): time a full
 pass over the dataset. The reference forks spawn DataLoader workers around one
-GPU; on TPU samples are generated on-device with prefetching, so this script
+GPU; here samples are generated on-device with prefetching, so this script
 times the direct sequential path and the batched device path.
 
     python -m fetalsyngen_tpu.test_dl --config configs/test.yaml
@@ -22,7 +22,10 @@ def main():
     ap.add_argument("--epochs", type=int, default=1)
     args = ap.parse_args()
 
+    from fetalsyngen_tpu.compile_cache import enable_compile_cache
     from fetalsyngen_tpu.config import instantiate, load_yaml, resolve_interpolations
+
+    enable_compile_cache()
 
     cfg = resolve_interpolations(load_yaml(args.config))
     cfg = cfg.get("dataset", cfg)

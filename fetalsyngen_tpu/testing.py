@@ -5,7 +5,9 @@ same layout as the reference's in-repo ``data/`` fixture
 (``sub-*/anat/*_T2w.nii.gz``, ``*_dseg.nii.gz``,
 ``derivatives/seeds/subclasses_N/sub-*/anat/*_mlabel_M.nii.gz``) from
 procedural volumes — packaged so examples and installed-package users can run
-the full dataset API without external data or a repo checkout.
+the full dataset API without external data or a repo checkout — and holds
+the NumPy reference of the warp's hat pass (:func:`hat_pass_reference`),
+shared by the tests and ``chip_smoke.py``.
 """
 
 from __future__ import annotations
@@ -93,83 +95,54 @@ def phantom_seeds_and_seg(shape=(256, 256, 256), seed: int = 0, n_subclusters: i
     return seeds, seg
 
 
-def scanner_ab_case(cube: int = 128, ns_grid: int = 32):
-    """Deterministic single-stack scanner geometry for kernel A/B tests.
+def hat_positions_reference(coefs, disp, shape, out_len=None) -> np.ndarray:
+    """(D*H, out_len) float32 sample positions of one hat pass, evaluated in
+    the same order as ``ops.warp`` (see :func:`hat_pass_reference`)."""
+    D, H, W = shape
+    OW = W if out_len is None else out_len
+    f32 = np.float32
+    c = np.asarray(coefs, f32)
+    c = np.repeat(c, H, axis=0) if c.ndim == 2 else c[None, :]
+    rows = np.arange(D * H, dtype=f32)
+    ri = np.floor(rows / f32(H))[:, None]
+    rj = rows[:, None] - ri * f32(H)
+    lanes = np.arange(OW, dtype=f32)[None, :]
+    pos = c[:, 0:1] * ri + c[:, 1:2] * rj + c[:, 2:3] * lanes + c[:, 3:4]
+    if disp is not None:
+        d = np.asarray(disp, f32)
+        if d.ndim == 2 and d.shape[0] == 3:
+            pos = pos + d[0][None, :] * ri + d[1][None, :] * rj + d[2][None, :]
+        else:
+            pos = pos + d.reshape(D * H, OW)
+    return pos
 
-    Shared by ``tests/test_kernel_parity.py`` (interpreter-mode kernel vs
-    jnp fallback) and ``tests_tpu`` (compiled Mosaic vs CPU-pinned probes):
-    a production-scale gap (gap_vox = 4, z-extraction lane slope 4) with
-    recorded-trajectory motion — the geometry class where a kernel
-    window-bound bug corrupts the TPU path while the CPU suite stays green.
 
-    Returns a dict with the phantom (vol, mask), stack geometry and scalars,
-    ready to feed ``scanner._acquire_stack`` / ``scanner._recon_stack``.
+def hat_pass_reference(vol, coefs, disp, shape, nearest, out_len=None, pos=None):
+    """NumPy reference for ``ops.warp.hat_pass``: resample the LAST axis of
+    ``vol`` (D, H, W) at ``pos = ci*i + cj*j + ck*k + bias [+ disp]``.
+
+    Edge-clamped two-tap interpolation, linear or nearest (round half to
+    even, like ``jnp.round``). ``coefs`` is a 4-tuple or a per-slice (D, 4)
+    table; ``disp`` is None, a (D, H, out_len) displacement volume or a
+    (3, out_len) per-lane affine table ``A0*i + A1*j + A2``. Positions are
+    float32 (:func:`hat_positions_reference`, or ``pos`` when given), so the
+    reference and the device pass differ only by floating-point contraction.
     """
-    from scipy.ndimage import gaussian_filter
-
-    from .generator.artifacts import scanner as sc
-    from .generator.artifacts.motion import sample_motion
-    from .generator.artifacts.transforms import random_init_stack_transforms
-
-    rng = np.random.default_rng(11)
-    shape = (96, 96, 96)
-    base = np.zeros(shape, np.float32)
-    base[20:76, 24:72, 22:74] = 100.0
-    vol = gaussian_filter(
-        base + rng.normal(0, 5, shape).astype(np.float32) * (base > 0), 1.0
-    ).astype(np.float32)
-    mask = (vol > 5).astype(np.float32)
-
-    res, res_s, thick, gap = 0.5, 0.7, 2.0, 2.0
-    rs, gap_vox = res_s / res, gap / res
-    ns = min(int(max(shape) * res / gap) + 2, ns_grid)
-    t_init = random_init_stack_transforms(ns, gap, False, 3.0, rng)
-    t_target = sample_motion(np.arange(ns) * 1.0, rng).compose(t_init)
-    mats_vox = t_target.matrix(True).copy()
-    mats_vox[:, :, 3] /= res
-    geo = sc._stack_geometry(
-        t_init.matrix(True)[0, :, :3], mats_vox, shape, ns, cube, ns_grid
-    )
-    z0 = float((cube - 1) / 2.0 - (ns - 1) / 2.0 * gap_vox)
-    i_q, i_ang, i_scl, i_dlt = sc.decompose_affine_paeth_host(
-        geo["Minv"], -geo["Minv"] @ geo["t_stack"], cube
-    )
-    return dict(
-        shape=shape, vol=vol, mask=mask, res=res, rs=rs, gap_vox=gap_vox,
-        thick=thick, ns=ns, z0=z0, geo=geo, mats_vox=mats_vox,
-        inv=(i_q, i_ang, i_scl, i_dlt),
-        sig=(sc.GAUSSIAN_FWHM * thick / res, sc.SINC_FWHM * rs, sc.SINC_FWHM * rs),
-        sig_rec=(sc.GAUSSIAN_FWHM * thick / res, sc.SINC_FWHM * rs),
-    )
-
-
-def run_scanner_ab(case, cube: int = 128, ns_grid: int = 32):
-    """Run one acquire+recon on the current backend for :func:`scanner_ab_case`."""
-    import jax
-    import jax.numpy as jnp
-
-    from .generator.artifacts import scanner as sc
-
-    s = case
-    i_q, i_ang, i_scl, i_dlt = s["inv"]
-    slices, valid = sc._acquire_stack(
-        jnp.asarray(s["vol"]), jnp.asarray(s["mask"]),
-        jnp.int32(s["geo"]["fwd"][0]), jnp.asarray(s["geo"]["fwd"][1]),
-        jnp.float32(s["geo"]["fwd"][2]), jnp.asarray(s["geo"]["fwd"][3]),
-        jnp.asarray(s["geo"]["G"]), jnp.float32(s["rs"]),
-        jnp.float32(s["gap_vox"]), jnp.float32(s["z0"]),
-        jnp.asarray(s["sig"], jnp.float32), jnp.float32(0.15),
-        jnp.int32(s["ns"]), jax.random.PRNGKey(0), jnp.float32(1.0),
-        jnp.asarray(False), jnp.float32(0.0), jnp.float32(0.0),
-        jnp.float32(0.1), cube=cube, ns_grid=ns_grid,
-    )
-    v_s, w_s = sc._recon_stack(
-        slices, valid, jnp.asarray(s["geo"]["G"]), jnp.float32(s["rs"]),
-        jnp.float32(s["gap_vox"]), jnp.float32(s["z0"]),
-        jnp.asarray(s["sig_rec"], jnp.float32),
-        jnp.int32(i_q), jnp.asarray(i_ang), jnp.float32(i_scl),
-        jnp.asarray(i_dlt), cube=cube, ns_grid=ns_grid, out_shape=s["shape"],
-    )
-    return (
-        np.asarray(slices), np.asarray(valid), np.asarray(v_s), np.asarray(w_s)
-    )
+    D, H, W = shape
+    OW = W if out_len is None else out_len
+    f32 = np.float32
+    x = np.asarray(vol, f32).reshape(D * H, W)
+    if pos is None:
+        pos = hat_positions_reference(coefs, disp, shape, out_len)
+    cl = np.clip(pos, 0, W - 1)
+    r = np.arange(D * H)[:, None]
+    if nearest:
+        out = x[r, np.rint(cl).astype(np.int64)]
+    else:
+        fl = np.clip(np.floor(cl), 0, W - 2)
+        w = cl - fl
+        fi = fl.astype(np.int64)
+        out = x[r, fi] * (f32(1) - w) + x[r, fi + 1] * w
+    out = np.where(pos <= 0, x[:, :1], out)
+    out = np.where(pos >= W - 1, x[:, W - 1 :], out)
+    return out.astype(f32).reshape(D, H, OW)

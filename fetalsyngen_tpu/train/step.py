@@ -1,21 +1,20 @@
 """Fused generate+train step: synthesis feeds segmentation training on-device.
 
 BASELINE config #5: batched multi-subject generation + training on the same
-chips, so the "dataloader" can never starve the pod — the generator IS part of
-the compiled step. Sharding: pure data parallelism over the batch axis
-(generation needs no cross-chip traffic; gradients all-reduce over ICI, which
-XLA inserts from the sharding annotations).
+devices, so the "dataloader" can never starve the trainer — the generator IS
+part of the compiled step. Sharding: pure data parallelism over the batch
+axis (generation needs no cross-device traffic; the gradient all-reduce is
+inserted by XLA from the sharding annotations).
 """
 
 from __future__ import annotations
 
 from functools import partial
-from typing import Any
+from typing import Any, NamedTuple
 
 import jax
 import jax.numpy as jnp
 import optax
-from flax import struct
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..generator.config import GeneratorCfg
@@ -23,8 +22,7 @@ from ..generator.pipeline import _synth_core
 from .unet import UNet3D
 
 
-@struct.dataclass
-class TrainState:
+class TrainState(NamedTuple):
     params: Any
     opt_state: Any
     step: jnp.ndarray

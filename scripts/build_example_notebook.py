@@ -30,21 +30,21 @@ def code(src: str):
 
 CELLS = [
     md(
-        "# FetalSynGen-TPU: generator walkthrough\n"
+        "# FetalSynGen (JAX): generator walkthrough\n"
         "\n"
-        "The TPU-native synthetic fetal-MRI generator, driven through the\n"
+        "The JAX synthetic fetal-MRI generator, driven through the\n"
         "same three dataset configurations the reference walkthrough covers\n"
         "(`configs/dataset/{synth_train,real_train,testing}.yaml`), on the\n"
         "**real fetal subject packaged in this repo** (`data/`, see\n"
         "`data/README.md`).\n"
         "\n"
-        "On a TPU host every `sample()` below runs as one fused XLA program\n"
-        "on the chip; this executed copy ran on CPU (same code path, same\n"
-        "numerics contract) so it reproduces anywhere."
+        "On a GPU host every `sample()` below runs as one fused XLA program\n"
+        "on the card; the cell below pins the CPU so the walkthrough\n"
+        "reproduces anywhere (same code path, same numerics contract)."
     ),
     code(
         "import jax\n"
-        "# comment out on a TPU host to run on the chip\n"
+        "# comment out on a GPU host to run on the card\n"
         'jax.config.update("jax_platforms", "cpu")\n'
         "\n"
         "import numpy as np\n"
@@ -154,12 +154,12 @@ CELLS = [
         "\n"
         "- **Production throughput**: `fetalsyngen_tpu.parallel.SyntheticStream`\n"
         "  — device-resident seed banks, one fused batch program, prefetch;\n"
-        "  70+ volumes/s/chip at 256³ (see `README.md` benchmarks).\n"
+        "  throughput on the GPU: see `PERF.md`.\n"
         "- **SR artifacts** (blur-cortex, structural noise, motion + PSF\n"
         "  reconstruction, boundaries): `docs/sr_artif_api.md`; the stream\n"
         "  applies them in-program, and `SyntheticStream(genparams=...)` pins\n"
         "  `resolution_slice` / `slice_thickness` / `gap` and artifact gates.\n"
-        "- **Multi-chip**: `fetalsyngen_tpu.parallel.sharding` shards the\n"
+        "- **Multi-GPU**: `fetalsyngen_tpu.parallel.sharding` shards the\n"
         "  generator over a `jax.sharding.Mesh` (`docs/design.md`).\n"
         "- Training example: `examples/train_segmentation.py`."
     ),

@@ -1,18 +1,20 @@
-"""In-vivo per-tier cost attribution through the CACHED stream program.
+"""Per-tier cost attribution through ONE compiled stream program.
 
 Uses the stream's genparams pinning (``SyntheticStream(genparams=...)``) to
 route EVERY sample of a batch to one engine variant — motion off / small
-px-frame / 384 / 512 / 640 — while executing the SAME compiled batch
-program (pins are host-side draw overrides; the trace is unchanged), so the
-attribution costs zero new remote compiles. Differences between variants
-are exact per-tier motion-engine costs in the production program.
+px-frame / each static tier — while executing the same batch program: pins
+are host-side draw overrides, the trace is unchanged, so each variant after
+the first costs no compile. Differences between variants are the per-tier
+motion-engine costs in the production program.
 
-Usage: python scripts/profile_pinned_tiers.py [--iters 6]
+Prints the card (name and power limit from ``nvidia-smi``) and one JSON line
+per variant; fails without a GPU.
+
+Usage: python scripts/profile_pinned_tiers.py [--iters 6] [--batch 4]
 """
 
 import argparse
 import json
-import os
 import sys
 import tempfile
 import time
@@ -20,15 +22,12 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.jax_cache")
-
 import jax
-
-jax.config.update("jax_compilation_cache_dir", os.environ["JAX_COMPILATION_CACHE_DIR"])
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-
-import jax.numpy as jnp
 import numpy as np
+
+from fetalsyngen_tpu.compile_cache import enable_compile_cache
+
+REPO = Path(__file__).resolve().parent.parent
 
 
 def build_ds(shape):
@@ -50,7 +49,9 @@ def build_ds(shape):
             for m in range(1, 5):
                 part = np.where(seeds_np % 4 == (m - 1), seeds_np, 0).astype(np.int8)
                 nifti.save(sd / f"{sub}_mlabel_{m}.nii.gz", part)
-    gen_cfg = resolve_interpolations(load_yaml("configs/dataset/generator/default.yaml"))
+    gen_cfg = resolve_interpolations(
+        load_yaml(REPO / "configs" / "dataset" / "generator" / "default.yaml")
+    )
     gen_cfg["shape"] = list(shape)
     gen_cfg["spatial_deform"]["size"] = list(shape)
     generator = instantiate(gen_cfg)
@@ -75,19 +76,30 @@ def main():
     ap.add_argument("--batch", type=int, default=4)
     args = ap.parse_args()
 
+    from fetalsyngen_tpu.accelerator import device_record, nvidia_smi_cards, require_gpu
     from fetalsyngen_tpu.parallel.input_pipeline import SyntheticStream
+
+    devices = require_gpu(jax.devices())
+    for line in nvidia_smi_cards():
+        print(line, flush=True)
+    device = device_record(devices)
+    enable_compile_cache()
 
     ds = build_ds((256, 256, 256))
     results = {}
+    batch_fn = None
     for name, pin in VARIANTS.items():
         gp = None if pin is None else {"artifact_params": {"simulate_motion": pin}}
         stream = SyntheticStream(
             ds, batch_size=args.batch, seed=0, prefetch=False, genparams=gp
         )
+        if batch_fn is not None:
+            stream._batch_fn = batch_fn  # same program: pins are host-side
         it = iter(stream)
         for _ in range(2):
             b = next(it)
-            float(jnp.sum(b["image"][..., ::64, ::64, ::64]))
+            jax.block_until_ready(b["image"])
+        batch_fn = stream._batch_fn
         if pin and "resolution_slice" in pin:
             rec = b["meta"]["scanner"]
             assert np.allclose(
@@ -95,32 +107,26 @@ def main():
             ), rec["resolution_slice"]
         t0 = time.perf_counter()
         for _ in range(args.iters):
-            b = next(it)
-            float(jnp.sum(b["image"][..., ::64, ::64, ::64]))
-        dt = time.perf_counter() - t0
-        per_batch = dt / args.iters
+            jax.block_until_ready(next(it)["image"])
+        per_batch = (time.perf_counter() - t0) / args.iters
         results[name] = per_batch
         print(
             json.dumps(
                 {
+                    "device": device,
                     "variant": name,
-                    "s_per_batch": round(per_batch, 4),
-                    "vol_per_s": round(args.batch / per_batch, 3),
+                    "s_per_batch": per_batch,
+                    "vol_per_s": args.batch / per_batch,
                 }
             ),
             flush=True,
         )
-    if "motion_off" in results:
-        base = results["motion_off"]
-        for name, t in results.items():
-            if name in ("motion_off",):
-                continue
+    base = results["motion_off"]
+    for name, t in results.items():
+        if name != "motion_off":
             print(
                 json.dumps(
-                    {
-                        "variant": name + "-motion_cost",
-                        "s_per_batch_motion_only": round(t - base, 4),
-                    }
+                    {"variant": name + "-motion_cost", "s_per_batch_motion_only": t - base}
                 ),
                 flush=True,
             )

@@ -1,7 +1,7 @@
 """NumPy golden implementations of the reference's voxel math.
 
 These re-state the *semantics* of ``fetalsyngen/utils/generation.py`` (the
-torch kernels) in plain NumPy so the JAX/TPU ops can be validated voxel-level
+torch kernels) in plain NumPy so the JAX ops can be validated voxel-level
 against an independent implementation — the kernel-equivalence strategy the
 reference itself uses via ``fast_3D_interp_torch_test`` (``generation.py:291-307``).
 """

@@ -445,7 +445,7 @@ class TestScanner:
 
 @pytest.mark.slow
 class TestSliceAcqParity:
-    """Voxel-level A/B of the TPU acquisition/adjoint vs the reference's
+    """Voxel-level A/B of the dense acquisition/adjoint vs the reference's
     executable spec — the sparse-COO CPU fallback of ``slice_acq_cuda``
     (reference ``slice_acq.py:272-430, 499-546``), reimplemented in NumPy
     (``np_reference.psf_slice_acquisition_ref`` / ``psf_slice_adjoint_ref``).

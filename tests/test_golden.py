@@ -7,8 +7,8 @@ reductions between jax versions, so we pin means/extremes to tight tolerances
 and label histograms exactly.
 
 NOTE: the pinned values are CPU-backend-specific (the whole suite runs on the
-virtual CPU mesh, conftest.py); the compiled TPU/Mosaic path is validated
-separately by ``tests_tpu/`` on a real chip.
+virtual CPU mesh, conftest.py); the GPU build of the same programs is checked
+at full size against references by ``chip_smoke.py``.
 """
 
 import numpy as np
@@ -89,4 +89,4 @@ GOLDEN_PROBE = [
     0.4800682067871094,
     0.4834454357624054,
     0.4893254339694977,
-]  # re-pinned 2026-08-17 (U-x pass -> two MXU matmul shears), CPU backend
+]  # re-pinned 2026-08-17 (U-x pass -> two matmul shears), CPU backend

@@ -106,7 +106,7 @@ def test_stream_mixes_subjects_within_batch(dataset):
 
 @pytest.mark.slow
 def test_sharded_artifact_generator_8dev():
-    """Pod-scale generation WITH the SR-artifact chain: shard_map over the
+    """Multi-device generation WITH the SR-artifact chain: shard_map over the
     virtual 8-device mesh, one local lax.map per device (zero cross-chip
     traffic). Compiles and executes end-to-end; outputs well-formed and
     per-sample distinct."""

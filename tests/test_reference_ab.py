@@ -180,7 +180,7 @@ def test_gaussian_blur_matches_reference():
 
 
 def test_gaussian_blur_mm_matches_reference():
-    """The MXU Toeplitz-matmul blur (production path) vs the reference conv."""
+    """The Toeplitz-matmul blur (production path) vs the reference conv."""
     from fetalsyngen_tpu.ops.linops import gaussian_blur_mm
 
     rng = np.random.default_rng(7)

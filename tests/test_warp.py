@@ -48,7 +48,7 @@ class TestHatPass:
         vol = RNG.normal(size=(4, 6, 32)).astype(np.float32)
         disp = RNG.uniform(-5, 5, size=(4, 6, 32)).astype(np.float32)
         got = np.asarray(
-            hat_pass(jnp.asarray(vol), (0.0, 0.0, 1.0, 0.0), jnp.asarray(disp), (4, 6, 32), 16, False)
+            hat_pass(jnp.asarray(vol), (0.0, 0.0, 1.0, 0.0), jnp.asarray(disp), (4, 6, 32), False)
         )
         k = np.arange(32)[None, None, :]
         c = np.clip(k + disp, 0, 31)
@@ -61,7 +61,7 @@ class TestHatPass:
         """hat_pass with non-unit slope == clamped lerp at scaled coords."""
         vol = RNG.normal(size=(4, 4, 24)).astype(np.float32)
         got = np.asarray(
-            hat_pass(jnp.asarray(vol), (0.0, 0.0, 1.1, -2.0), None, (4, 4, 24), 16, False)
+            hat_pass(jnp.asarray(vol), (0.0, 0.0, 1.1, -2.0), None, (4, 4, 24), False)
         )
         k = np.arange(24, dtype=np.float64)
         c = np.clip(1.1 * k - 2.0, 0, 23)
